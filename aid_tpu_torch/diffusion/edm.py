@@ -1,14 +1,17 @@
 """EDM diffusion parameterisation (Karras et al. 2022) in PyTorch.
 
 Port of ``aid_tpu/diffusion/edm.py``: schedule, churn gamma, the
-c_skip / c_out / c_in / c_noise preconditioning and the denoiser wrapper.
-The training loss and the training-sigma draws wait for the training slice.
+c_skip / c_out / c_in / c_noise preconditioning, the denoiser wrapper, the
+training-sigma draws and the training loss. Draws take an explicit
+``torch.Generator``; the loss also takes injected ``sigma`` and ``noise``
+(torch cannot reproduce JAX's threefry streams, so parity tests feed both
+packages the same draws).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -59,6 +62,28 @@ def get_gamma(p: EDMParams, t: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, torch.full_like(t, val), torch.zeros_like(t))
 
 
+def sample_ptrain_safe(p: EDMParams, n: int, gen: Optional[torch.Generator] = None,
+                       device=None) -> torch.Tensor:
+    """Training sigmas from the rho_train-shaped schedule distribution
+    (not log-normal): a uniform draw mapped through the Karras ramp."""
+    a = torch.rand((n,), generator=gen, device=device)
+    lo, hi = p.sigma_min ** (1 / p.rho_train), p.sigma_max ** (1 / p.rho_train)
+    return (hi + a * (lo - hi)) ** p.rho_train
+
+
+def sample_ptrain_lognormal(p: EDMParams, n: int, gen: Optional[torch.Generator] = None,
+                            device=None) -> torch.Tensor:
+    """The Karras log-normal alternative (unused by default)."""
+    ln = torch.randn((n,), generator=gen, device=device) * p.P_std + p.P_mean
+    return torch.clamp(torch.exp(ln), p.sigma_min, p.sigma_max)
+
+
+def sample_prior(p: EDMParams, shape, sigma, gen: Optional[torch.Generator] = None,
+                 device=None) -> torch.Tensor:
+    """sigma-scaled Gaussian noise."""
+    return torch.randn(shape, generator=gen, device=device) * sigma
+
+
 def cskip(p: EDMParams, sigma):
     return p.sigma_data ** 2 / (sigma ** 2 + p.sigma_data ** 2)
 
@@ -76,6 +101,10 @@ def cnoise(p: EDMParams, sigma):
     return 0.25 * torch.log(sigma)
 
 
+def lambda_w(p: EDMParams, sigma):
+    return (sigma * p.sigma_data) ** -2 * (p.sigma_data ** 2 + sigma ** 2)
+
+
 def denoiser(p: EDMParams, net: Callable, xn: torch.Tensor,
              sigma: torch.Tensor) -> torch.Tensor:
     """D(x, sigma) = cskip x + cout net(cin x, cnoise).
@@ -84,6 +113,38 @@ def denoiser(p: EDMParams, net: Callable, xn: torch.Tensor,
         sigma = sigma[:, None]
     return cskip(p, sigma) * xn + cout(p, sigma) * net(cin(p, sigma) * xn,
                                                        cnoise(p, sigma))
+
+
+def prepare_train_preconditioning(p: EDMParams, x: torch.Tensor, sigma: torch.Tensor,
+                                  gen: Optional[torch.Generator] = None,
+                                  noise: Optional[torch.Tensor] = None):
+    """Network input cin (x + n), regression target (x - cskip (x + n)) / cout
+    and cnoise; n = sigma * N(0, 1), drawn from ``gen`` unless ``noise`` (the
+    sigma-scaled noise itself) is given."""
+    if noise is None:
+        noise = sample_prior(p, x.shape, sigma, gen, x.device)
+    xn = x + noise
+    return cin(p, sigma) * xn, (x - cskip(p, sigma) * xn) / cout(p, sigma), cnoise(p, sigma)
+
+
+def loss_fn(p: EDMParams, net: Callable, x: torch.Tensor,
+            gen: Optional[torch.Generator] = None,
+            error_filter: Optional[Callable] = None,
+            sigma: Optional[torch.Tensor] = None,
+            noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-element squared error [B, T] and the sigmas used [B, 1].
+
+    sigma is drawn with ``sample_ptrain_safe`` and then the noise, both from
+    ``gen``, unless injected. ``error_filter`` is an optional linear map of
+    the raw error applied before squaring (CQT DC correction, A-weighting)."""
+    if sigma is None:
+        sigma = sample_ptrain_safe(p, x.shape[0], gen, x.device)
+    sigma = sigma.reshape(-1, 1)
+    net_in, target, cn = prepare_train_preconditioning(p, x, sigma, gen, noise)
+    error = net(net_in, cn) - target
+    if error_filter is not None:
+        error = error_filter(error)
+    return error ** 2, sigma
 
 
 class EDM:

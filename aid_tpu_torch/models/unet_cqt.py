@@ -17,6 +17,7 @@ run in f32; the decoder's coefficients and the output are f32.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -24,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from aid_tpu_torch.ops import fused_adaln
 from aid_tpu_torch.ops.cqt import CQT, get_cqt
@@ -380,18 +383,45 @@ def resample_time(x: torch.Tensor, up: bool, kernel: str = "cubic") -> torch.Ten
 # --------------------------------------------------------------------------
 
 
+# Outputs kept by remat_policy="conv": the convolutions and the matrix
+# products (1x1 convs, projections, attention); the backward recomputes only
+# the norm / GELU / gate chain between them.
+_CONV_OUT_OPS = {torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+                 torch.ops.aten.bmm.default, torch.ops.aten.addmm.default}
+
+
+def _save_conv_out(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _CONV_OUT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT_POLICIES = ("block", "conv")
+
+
 class UnetCQT(nn.Module):
     """The octave U-Net denoiser: forward(audio [B, T], cnoise [B, 1]) ->
-    audio [B, T] (f32). The CQT is a fixed member, not a parameter."""
+    audio [B, T] (f32). The CQT is a fixed member, not a parameter.
+
+    ``remat`` rematerialises every ``AdaLNResBlock`` while gradients are
+    recorded: policy "block" keeps only each block's inputs and recomputes
+    the block in the backward; "conv" keeps the conv and matmul outputs too
+    and recomputes only the elementwise chain. Either way the forward
+    recomputation launches the fused kernel again."""
 
     def __init__(self, cqt: CQT, Ns: Sequence[int], num_dils: Sequence[int],
                  attention_layers: Sequence[int], attention: dict,
                  emb_dim: int = 256, use_norm: bool = True,
                  num_bottleneck_layers: int = 1, gelu: str = "erf",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 remat_policy: str = "block"):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"network.remat_policy={remat_policy!r}: expected "
+                             "'block' or 'conv'")
         self.cqt = cqt
         self.dtype = dtype
+        self.remat = remat
+        self.remat_policy = remat_policy
         O = cqt.num_octs
         bins = cqt.bins_per_oct
         self.bins = bins
@@ -449,10 +479,21 @@ class UnetCQT(nn.Module):
                 m.to(self.dtype)
         return self
 
+    def _block(self, blk: "AdaLNResBlock", x: torch.Tensor,
+               emb: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and torch.is_grad_enabled()):
+            return blk(x, emb)
+        if self.remat_policy == "conv":
+            return checkpoint(blk, x, emb, use_reentrant=False,
+                              context_fn=functools.partial(
+                                  create_selective_checkpoint_contexts, _save_conv_out))
+        return checkpoint(blk, x, emb, use_reentrant=False)
+
     def forward(self, audio: torch.Tensor, cnoise: torch.Tensor) -> torch.Tensor:
         O, bins, dt = self.cqt.num_octs, self.bins, self.dtype
         emb = self.embedding(cnoise, dt)
         X_list = self.cqt.fwd(audio[:, None, :])
+        block = self._block
 
         def to_real(c):  # complex [B, 1, bins, M] -> [B, bins, M, 2]
             return torch.view_as_real(c[:, 0]).to(dt)
@@ -461,13 +502,13 @@ class UnetCQT(nn.Module):
         X = pyr = None
         for i, (init, pyr_conv, res) in enumerate(self.downs):
             C = to_real(X_list[O - 1 - i])
-            C2 = init(C, emb)
+            C2 = block(init, C, emb)
             if i == 0:
                 X, pyr = C2, C
             else:
                 pyr = torch.cat([C, pyr], dim=1)
                 X = torch.cat([C2, X], dim=1)
-            X = res(X, emb)
+            X = block(res, X, emb)
             hs.append(X)
             if i < O - 1:
                 # one resample for the main path and the raw-CQT pyramid
@@ -478,14 +519,14 @@ class UnetCQT(nn.Module):
 
         Xout = None
         for out_blk, res in self.middle:
-            X = res(X, emb)
-            Xout = out_blk(X, emb)
+            X = block(res, X, emb)
+            Xout = block(out_blk, X, emb)
 
         X_out_list = [None] * O
         for i, (out_blk, res) in enumerate(self.ups):
             X = torch.cat([X, hs.pop()], dim=-1)
-            X = res(X, emb)
-            Xout = (Xout + out_blk(X, emb)) / SQRT2
+            X = block(res, X, emb)
+            Xout = (Xout + block(out_blk, X, emb)) / SQRT2
             out_rows, Xout = Xout[:, :bins], Xout[:, bins:]
             X = X[:, bins:]
             X_out_list[i] = torch.view_as_complex(
@@ -515,7 +556,6 @@ def build_unet(args, device=None) -> UnetCQT:
         net.get(key)  # TPU layout rewrites of the same math: ignored
     unported = {"quant": net.get("quant", "none") != "none",
                 "context_parallel": bool(net.get("context_parallel", False)),
-                "remat": bool(net.get("remat", False)),
                 "use_fencoding": bool(net.get("use_fencoding", False))}
     for key, on in unported.items():
         if on:
@@ -532,4 +572,6 @@ def build_unet(args, device=None) -> UnetCQT:
         attention_layers=tuple(net.attention_layers), attention=attention,
         emb_dim=net.emb_dim, use_norm=net.use_norm,
         num_bottleneck_layers=int(net.get("num_bottleneck_layers", 1)),
-        gelu=str(net.get("gelu", "erf")), dtype=dtype)
+        gelu=str(net.get("gelu", "erf")), dtype=dtype,
+        remat=bool(net.get("remat", False)),
+        remat_policy=str(net.get("remat_policy", "block")))

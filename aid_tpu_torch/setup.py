@@ -22,23 +22,56 @@ def resolve_device(device=None) -> torch.device:
 
 
 def setup_network(args, device=None, state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                  seed: int = 0) -> torch.nn.Module:
-    """The denoiser module from ``network.callable``, on its device, in
-    inference mode (parameters frozen): weights from ``state_dict`` when
-    given, else a seeded random init."""
+                  seed: int = 0, trainable: bool = False) -> torch.nn.Module:
+    """The denoiser module from ``network.callable`` on its device, weights
+    from ``state_dict`` when given, else a seeded random init. For serving
+    (the default) the parameters are frozen and stored in the compute dtype;
+    ``trainable`` keeps f32 parameters that record gradients (the RFF
+    frequencies stay frozen, as in the reference)."""
     dev = resolve_device(device)
     net = call_func_by_name(args, func_name=args.network.callable)
     if state_dict is not None:
         net.load_state_dict(state_dict)
     else:
         net.init_weights(seed)
+    if trainable:
+        return net.to(dev).train()
     net.store_weights_in_compute_dtype().requires_grad_(False)
     return net.to(dev).eval()
+
+
+def setup_dataset(args) -> Any:
+    """Infinite training-batch iterator yielding (audio [B, T], fs [B]) numpy
+    batches: ``exp.num_workers`` decode processes, or one prefetch thread."""
+    from aid_tpu_torch.data.loader import MultiProcessLoader, make_train_loader
+    nw = int(args.exp.get("num_workers", 0))
+    if nw > 0:
+        return MultiProcessLoader(args, str(args.dset.callable), int(args.exp.batch), nw)
+    ds = call_func_by_name(args, func_name=args.dset.callable)
+    return make_train_loader(iter(ds), int(args.exp.batch))
+
+
+def setup_dataset_test(args) -> Any:
+    """Finite test set yielding (audio, fs, filename)."""
+    return call_func_by_name(args, func_name=args.dset.test.callable)
 
 
 def setup_diff_parameters(args) -> Any:
     """EDM object (``diff_params.callable``)."""
     return call_func_by_name(args, func_name=args.diff_params.callable)
+
+
+def setup_tester(args, network=None, diff_params=None, test_set=None,
+                 in_training=False) -> Any:
+    """Testers (and with them the trainer's demo samples) are not ported."""
+    raise NotImplementedError(
+        "testers are not ported to aid_tpu_torch yet (ROADMAP queue 1, testers)")
+
+
+def setup_trainer(args, dset=None, network=None, diff_params=None, tester=None) -> Any:
+    """Trainer (``exp.trainer_callable``)."""
+    return call_func_by_name(args, dset, network, diff_params, tester,
+                             func_name=args.exp.trainer_callable)
 
 
 def setup_sampler(args, network, diff_params) -> Any:

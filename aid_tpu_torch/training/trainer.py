@@ -1,0 +1,505 @@
+"""EDM training of the U-Net on one CUDA device.
+
+Port of ``aid_tpu/training/trainer.py``. One iteration: the host batch goes
+to the device, rows at another rate are resampled there and cropped to the
+model length, a per-row polarity flip, the EDM loss (sigma and noise drawn
+from the trainer's ``torch.Generator``), gradients summed over
+``num_accumulation_rounds`` micro-batches, the pre-clip global norm, the
+global-norm clip, Adam, the LR ramp, the skip guardrails, the EMA of the
+parameters and the loss statistics. The loop around it logs, checkpoints,
+resumes, profiles and guards against stalls and host-memory growth, as the
+JAX trainer does.
+
+The optimizer is written as tensor ops (``torch._foreach_*``) and not as
+``torch.optim.Adam``, because the JAX step's semantics need it:
+  * optax's ``scale_by_schedule`` reads the step count before incrementing
+    it, so the first update has learning rate 0 and leaves the parameters
+    as they were;
+  * optax clips to ``g max / |g|`` when ``|g| >= max``; PyTorch's
+    ``clip_grad_norm_`` divides by ``|g| + 1e-6``;
+  * a step the guardrail skips keeps the parameters, both moments and the
+    step count, chosen on the device with ``torch.where`` and no host sync.
+
+Random draws (the polarity sign, sigma, the noise) can be injected per
+micro-batch, so a test can feed this trainer and the JAX one the same draws.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from aid_tpu_torch.diffusion import edm
+from aid_tpu_torch.training import stats as tstats
+from aid_tpu_torch.training import utils as tutils
+from aid_tpu_torch.utils import checkpoint as ckpt
+from aid_tpu_torch.utils import logging_utils as logu
+
+
+class Trainer:
+    """Training orchestrator built from the config tree
+    (``exp.trainer_callable``): ``network`` is the trainable module
+    (``setup.setup_network(..., trainable=True)``), ``dset`` an iterator of
+    host batches (audio [B, T], fs [B])."""
+
+    def __init__(self, args, dset=None, network=None, diff_params=None, tester=None):
+        self.args = args
+        self.exp = exp = args.exp
+        self.dset = dset
+        if tester is not None:
+            raise NotImplementedError(
+                "in-training demos need a tester, which is not ported yet "
+                "(ROADMAP queue 1, testers)")
+        quant = str(args.network.get("quant", "none"))
+        if quant != "none":
+            raise ValueError(f"network.quant={quant} is a serving-only path; train with "
+                             "network.quant=none")
+        mesh = exp.get("mesh", {}) or {}
+        if (bool(mesh.get("fsdp", False)) or bool(mesh.get("distributed", False))
+                or int(mesh.get("dp", -1)) > 1):
+            raise NotImplementedError(
+                "aid_tpu_torch trains on one device; multi-device and multi-host "
+                "training (exp.mesh) is not ported yet (ROADMAP queue 1, item 10)")
+        self._pin_mmap_threshold()
+        self.net = network
+        self.p = diff_params.params if hasattr(diff_params, "params") else diff_params
+        named = list(network.named_parameters())
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.device = self.params[0].device
+        self.groups = sorted({n.split(".")[0] for n in self.names})
+
+        self.n_accum = int(exp.get("num_accumulation_rounds", 1))
+        self.batch = int(exp.batch)
+        self.audio_len = int(exp.audio_len)
+        self.target_fs = int(exp.sample_rate)
+        self.aug_cfg = exp.get("augmentations", None)
+        self.base_lr = float(exp.lr)
+        self.rampup = max(int(exp.lr_rampup_it), 1)
+        opt = exp.optimizer
+        self.b1, self.b2, self.eps = float(opt.beta1), float(opt.beta2), float(opt.eps)
+        self.use_clip = bool(exp.get("use_grad_clip", True))
+        self.max_norm = float(exp.max_grad_norm)
+        self.skip_gnorm = float(exp.get("skip_grad_norm", 0) or 0)
+        self.skip_factor = float(exp.get("skip_grad_factor", 0) or 0)
+        self.ema_rate = float(exp.ema_rate)
+        self.ema_rampup = exp.get("ema_rampup", None)
+        self.total_its = int(exp.get("total_its", 10 ** 9))
+        # exit when no iteration completes in this window (0 disables); a
+        # relaunch resumes from the latest checkpoint
+        self.stall_timeout_s = float(exp.get("stall_timeout_s", 1800.0))
+
+        logging = args.logging
+        self.log_interval = int(logging.get("log_interval", 1000))
+        self.save_interval = int(logging.get("save_interval", 10000))
+        self.save_model = bool(logging.get("save_model", True))
+        self.remove_last = bool(logging.get("remove_last_checkpoint", False))
+        self.num_sigma_bins = int(logging.get("num_sigma_bins", 20))
+        prof = logging.get("profiling", {}) or {}
+        self.profile_enabled = bool(prof.get("enabled", False))
+        self.profile_start = int(prof.get("start_it", 10))
+        self.profile_its = int(prof.get("num_its", 3))
+        self.model_dir = str(args.model_dir)
+        self.profile_dir = os.path.join(self.model_dir, str(prof.get("trace_dir", "profile")))
+        os.makedirs(self.model_dir, exist_ok=True)
+
+        self.bin_edges = tstats.make_sigma_bins(self.p.sigma_min, self.p.sigma_max,
+                                                self.num_sigma_bins)
+        self._edges = torch.tensor(self.bin_edges, dtype=torch.float32, device=self.device)
+        self.collector = tstats.Collector()
+        self.plot = logu.LossBySigmaPlot()
+        self._plot_count = -1
+
+        err_filter = None
+        aw = args.diff_params.get("aweighting", {}) or {}
+        if bool(aw.get("use_aweighting", False)):
+            err_filter = tutils.a_weighting_filter(self.target_fs, int(aw.get("ntaps", 101)))
+        if bool(exp.get("use_cqt_DC_correction", False)):
+            hpf = network.cqt.apply_hpf_DC
+            prev = err_filter
+            err_filter = (lambda e: hpf(prev(e))) if prev else hpf
+        self.error_filter = err_filter
+
+        self.wandb = logu.WandbLogger(exp.get("wandb", None), args_dict=dict(args),
+                                      run_name=str(exp.get("exp_name", "")))
+        self.gen = torch.Generator(device=self.device).manual_seed(int(exp.get("seed", 42)))
+        self.it = 0
+        self.ema: Optional[List[torch.Tensor]] = None
+
+    # ------------------------------------------------------------------ state
+
+    def init_state(self) -> None:
+        """Fresh optimizer state around the network's current parameters:
+        EMA = parameters, zero moments, step count 0."""
+        with torch.no_grad():
+            self.ema = [p.detach().clone() for p in self.params]
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.gnorm_ema = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.applied = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.it = 0
+        if bool(self.args.logging.get("print_model_summary", False)):
+            n = sum(p.numel() for p in self.params)
+            print(f"[trainer] {n} parameters in {len(self.params)} tensors", flush=True)
+
+    def state_dict(self) -> Dict:
+        """The checkpoint payload (``utils/checkpoint.py`` layout), on the CPU."""
+        def cpu(ts):
+            return {n: t.detach().cpu() for n, t in zip(self.names, ts)}
+        return {"it": self.it, "network": cpu(self.params), "ema": cpu(self.ema),
+                "optimizer": {"mu": cpu(self.mu), "nu": cpu(self.nu),
+                              "count": int(self.count)},
+                "gnorm_ema": float(self.gnorm_ema), "applied": int(self.applied)}
+
+    def load_state_dict(self, payload: Dict) -> None:
+        """Restore a payload. Where its parameter names or shapes differ from
+        the network's, every tensor whose name and shape agree is copied, the
+        rest keep their current values, and the optimizer restarts."""
+        if self.ema is None:
+            self.init_state()
+        src, ema_src = payload["network"], payload.get("ema", payload["network"])
+        same = set(src) == set(self.names) and all(
+            tuple(src[n].shape) == tuple(p.shape) for n, p in zip(self.names, self.params))
+        copied = 0
+        with torch.no_grad():
+            for n, p, e in zip(self.names, self.params, self.ema):
+                if n in src and tuple(src[n].shape) == tuple(p.shape):
+                    p.copy_(src[n])
+                    e.copy_(ema_src[n])
+                    copied += 1
+                else:
+                    e.copy_(p)
+        if not same:
+            print(f"[resume] shape-matched partial load: {copied} tensors copied", flush=True)
+        opt = payload.get("optimizer") if same else None
+        with torch.no_grad():
+            if opt is not None:
+                for n, m, v in zip(self.names, self.mu, self.nu):
+                    m.copy_(opt["mu"][n])
+                    v.copy_(opt["nu"][n])
+                self.count.fill_(int(opt["count"]))
+            else:  # the optimizer restarts on a partial load
+                for t in self.mu + self.nu:
+                    t.zero_()
+                self.count.zero_()
+        self.it = int(payload.get("it", 0))
+        self.gnorm_ema.fill_(float(payload.get("gnorm_ema", 0.0)))
+        self.applied.fill_(int(payload.get("applied", self.it)))
+
+    # ------------------------------------------------------------- checkpoint
+
+    def _ckpt_path(self, it: int) -> str:
+        return os.path.join(os.path.abspath(self.model_dir), f"{self.exp.exp_name}-{it}.pt")
+
+    def save_checkpoint(self) -> str:
+        path = ckpt.save(self._ckpt_path(self.it), self.state_dict())
+        if self.remove_last:
+            for old in ckpt.list_checkpoints(self.model_dir, str(self.exp.exp_name)):
+                if old != path and old.endswith(".pt"):
+                    os.remove(old)
+        return path
+
+    def resume_from_checkpoint(self, path: Optional[str] = None) -> bool:
+        """Load ``path``, or the latest checkpoint of this experiment under
+        model_dir (the port's ``.pt`` or the JAX package's stream ``.ckpt``)."""
+        if path is None:
+            found = ckpt.list_checkpoints(self.model_dir, str(self.exp.exp_name))
+            if not found:
+                return False
+            path = found[-1]
+        self.load_state_dict(ckpt.load(path))
+        print(f"[resume] {path} at iteration {self.it}", flush=True)
+        return True
+
+    # ------------------------------------------------------------------ step
+
+    def loss_and_grads(self, audio: np.ndarray, fs: np.ndarray,
+                       draws: Optional[List[Dict]] = None):
+        """Loss and gradients of one iteration: ``audio`` [n_accum, B, T],
+        ``fs`` [n_accum, B] host arrays; ``draws`` optionally gives each
+        micro-batch's ``sign`` [B, 1], ``sigma`` [B] and sigma-scaled
+        ``noise`` [B, audio_len]. Returns (loss, per-sample loss, sigma,
+        gradients averaged over the micro-batches)."""
+        for p in self.params:
+            p.grad = None
+        losses, per_sample, sigmas = [], [], []
+        for i in range(audio.shape[0]):
+            d = {k: torch.tensor(v, device=self.device)
+                 for k, v in (draws[i] if draws else {}).items()}
+            x = torch.from_numpy(np.ascontiguousarray(audio[i], np.float32)).to(self.device)
+            if x.shape[-1] != self.audio_len:
+                # native-rate segments: resample on the device, crop to the model length
+                x = tutils.resample_batch(x, fs[i], self.target_fs)[..., :self.audio_len]
+            x = tutils.augment(x, self.aug_cfg, self.gen, sign=d.get("sign"))
+            err2, sigma = edm.loss_fn(self.p, self.net, x, self.gen, self.error_filter,
+                                      sigma=d.get("sigma"), noise=d.get("noise"))
+            ps = err2.reshape(err2.shape[0], -1).mean(-1)
+            loss = ps.mean()
+            loss.backward()
+            losses.append(loss.detach())
+            per_sample.append(ps.detach())
+            sigmas.append(sigma.detach())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        n = len(losses)
+        if n > 1:
+            torch._foreach_div_(grads, float(n))
+        return (sum(losses[1:], losses[0]) / n, torch.cat(per_sample), torch.cat(sigmas),
+                grads)
+
+    @torch.no_grad()
+    def apply_grads(self, loss, per_sample, sigma, grads) -> Dict:
+        """Clip, Adam, LR ramp, guardrails and EMA; returns the step's metrics
+        (device tensors: nothing here waits for the device)."""
+        norms = torch._foreach_norm(grads)
+        gnorm = torch.linalg.vector_norm(torch.stack(norms))
+        g = grads
+        if self.use_clip:
+            scale = torch.where(gnorm < self.max_norm, torch.ones_like(gnorm),
+                                self.max_norm / gnorm)
+            g = torch._foreach_mul(grads, scale)
+        # Adam (optax scale_by_adam)
+        count_inc = self.count + 1
+        mu = torch._foreach_mul(self.mu, self.b1)
+        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+        nu = torch._foreach_mul(self.nu, self.b2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+        t = count_inc.float()
+        bc1 = 1.0 - torch.pow(torch.tensor(self.b1, device=self.device), t)
+        bc2 = 1.0 - torch.pow(torch.tensor(self.b2, device=self.device), t)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(upd, den)
+        del den
+        # LR ramp on the count before the increment: the first step has lr 0
+        lr = self.base_lr * torch.clamp(self.count.float() / self.rampup, max=1.0)
+        torch._foreach_mul_(upd, -lr)
+        new_p = torch._foreach_add(self.params, upd)
+        del upd
+
+        finite = torch.isfinite(gnorm)
+        ok = finite
+        if self.skip_gnorm > 0:
+            ok = ok & (gnorm < self.skip_gnorm)
+        warm = self.gnorm_ema > 0.0
+        if self.skip_factor > 0:
+            ok = ok & (~warm | (gnorm < self.skip_factor * self.gnorm_ema))
+        if self.skip_gnorm > 0 or self.skip_factor > 0:
+            # a skipped step keeps the parameters, both moments and the count
+            for dst, new in zip(self.params + self.mu + self.nu, new_p + mu + nu):
+                dst.copy_(torch.where(ok, new, dst))
+            self.count = torch.where(ok, count_inc, self.count)
+            skipped = (~ok).float()
+            self.applied += ok.long()
+        else:
+            torch._foreach_copy_(self.params + self.mu + self.nu, new_p + mu + nu)
+            self.count = count_inc
+            skipped = torch.zeros((), device=self.device)
+            self.applied += 1
+        del new_p, mu, nu
+        g_obs = torch.where(finite, gnorm, self.gnorm_ema)
+        if self.skip_factor > 0:
+            cap = self.skip_factor * self.gnorm_ema
+            g_obs = torch.where(warm & (g_obs > cap), cap, g_obs)
+        self.gnorm_ema = torch.where(warm, 0.98 * self.gnorm_ema + 0.02 * g_obs, g_obs)
+
+        # EMA with rampup, in f32 as the JAX step: t = (it + 1) batch
+        tb = (np.float32(self.it) + np.float32(1.0)) * np.float32(self.batch)
+        rate = np.float32(self.ema_rate)
+        if self.ema_rampup is not None:
+            rate = min(rate, (np.float32(1.0) + tb) / (np.float32(10.0) + tb))
+        d = torch._foreach_sub(self.params, self.ema)
+        torch._foreach_mul_(d, float(np.float32(1.0) - rate))
+        torch._foreach_add_(self.ema, d)
+        del d
+        self.it += 1
+
+        sq = {k: torch.zeros((), device=self.device) for k in self.groups}
+        for n, v in zip(self.names, norms):
+            k = n.split(".")[0]
+            sq[k] = sq[k] + v * v
+        return {"loss": loss, "grad_norm": gnorm, "gnorm_ema": self.gnorm_ema,
+                "skipped": skipped,
+                "sigma_bins": tstats.sigma_binned_moments(per_sample, sigma, self._edges),
+                "loss_moments": tstats.moments(per_sample),
+                "grad_norms_by_module": {k: v.sqrt() for k, v in sq.items()}}
+
+    def get_batch(self):
+        """Next host batch: (audio [n_accum B, T] f32, fs [n_accum B])."""
+        audio, fs = next(self.dset)
+        return np.asarray(audio, np.float32), np.asarray(fs, np.int64)
+
+    def train_step(self, audio, fs, draws: Optional[List[Dict]] = None) -> Dict:
+        """One iteration on a host batch of n_accum x B rows, split into
+        n_accum micro-batches in order."""
+        audio = np.asarray(audio, np.float32)
+        audio = audio.reshape(self.n_accum, -1, audio.shape[-1])
+        fs = np.asarray(fs).reshape(self.n_accum, -1)
+        return self.apply_grads(*self.loss_and_grads(audio, fs, draws))
+
+    # --------------------------------------------------------------- logging
+
+    def easy_logging(self, metrics) -> Dict[str, float]:
+        """Scalars and per-sigma-bin statistics of one log interval (read,
+        plotted every tenth interval, then flushed)."""
+        out = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+               "grad_norm_ema": float(metrics["gnorm_ema"])}
+        for k, v in metrics["grad_norms_by_module"].items():
+            out[f"grads/{k}"] = float(v)
+        self.collector.update("loss", metrics["loss_moments"].cpu().numpy())
+        self.collector.update_binned("loss_by_sigma", metrics["sigma_bins"].cpu().numpy())
+        out["loss_mean_since_flush"] = float(np.mean(self.collector.mean("loss")))
+        self.wandb.log(out, step=self.it)
+        self._plot_count += 1
+        if self._plot_count % 10 == 0:
+            self.plot(self.bin_edges, self.collector.mean("loss_by_sigma"),
+                      self.collector.std("loss_by_sigma"),
+                      os.path.join(self.model_dir, "loss_by_sigma.png"))
+        self.collector.flush()
+        return out
+
+    # ------------------------------------------------------------------ loop
+
+    @staticmethod
+    def _pin_mmap_threshold():
+        """Pin glibc's mmap threshold at 128 KiB, so batch-sized host buffers
+        always come from mmap and go back to the OS when freed (glibc's
+        dynamic raise let them pile up in the heap in long JAX runs)."""
+        try:
+            import ctypes
+            ctypes.CDLL("libc.so.6").mallopt(-3, 128 * 1024)  # M_MMAP_THRESHOLD
+        except (OSError, AttributeError):
+            pass  # not glibc
+
+    @staticmethod
+    def _trim_host_heap():
+        """Collect reference cycles, then return freed heap pages to the OS."""
+        import gc
+        gc.collect()
+        try:
+            import ctypes
+            ctypes.CDLL("libc.so.6").malloc_trim(0)
+        except (OSError, AttributeError):
+            pass  # not glibc
+
+    def _maybe_recycle_process(self, it: int) -> None:
+        """Exit 0 right after a checkpoint when host RSS exceeds
+        ``exp.max_host_rss_gb`` (0 = off): a supervisor relaunch resumes from
+        that checkpoint in a fresh process, before the OS kills this one."""
+        cap_gb = float(self.exp.get("max_host_rss_gb", 0) or 0)
+        if cap_gb <= 0:
+            return
+        rss_gb = 0.0
+        try:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS"):
+                        rss_gb = int(line.split()[1]) / 1024 ** 2
+                        break
+        except OSError:
+            return
+        if rss_gb > cap_gb:
+            print(f"[trainer] host RSS {rss_gb:.1f} GB > exp.max_host_rss_gb={cap_gb:.0f}: "
+                  f"recycling the process after the it-{it} checkpoint (supervisor resumes)",
+                  flush=True)
+            sys.stdout.flush()
+            os._exit(0)
+
+    def _start_stall_guard(self):
+        """Daemon thread: exit(3) when the loop makes no progress for
+        stall_timeout_s. Returns the heartbeat cell the loop bumps, or None
+        when disabled; ``self._stall_stop.set()`` retires the thread."""
+        if self.stall_timeout_s <= 0:
+            return None
+        import threading
+        beat = [time.time()]
+        stop = threading.Event()
+        self._stall_stop = stop
+        _exit = os._exit
+        timeout = self.stall_timeout_s
+
+        def _guard():
+            while not stop.wait(min(30.0, timeout / 4)):
+                idle = time.time() - beat[0]
+                if idle > timeout:
+                    print(f"[trainer] STALL: no loop progress in {idle:.0f}s "
+                          f"(> stall_timeout_s={timeout:.0f}); exiting so a relaunch "
+                          "resumes from the latest checkpoint", flush=True)
+                    sys.stdout.flush()
+                    _exit(3)
+
+        threading.Thread(target=_guard, daemon=True, name="stall-guard").start()
+        return beat
+
+    def _profiler(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=acts)
+
+    def training_loop(self) -> int:
+        if self.ema is None:
+            resumed = False
+            if bool(self.exp.get("resume", False)):
+                resumed = self.resume_from_checkpoint(self.exp.get("resume_checkpoint", None)
+                                                      or None)
+            if not resumed:
+                self.init_state()
+        it = self.it
+        t0 = time.time()
+        beat = self._start_stall_guard()
+        last_applied = int(self.applied)
+        last_logged_it = it
+        prof = None
+        while it < self.total_its:
+            if self.profile_enabled and it == self.profile_start:
+                prof = self._profiler()
+                prof.start()
+            audio, fs = self.get_batch()
+            metrics = self.train_step(audio, fs)
+            it = self.it
+            if prof is not None and it == self.profile_start + self.profile_its:
+                prof.stop()
+                os.makedirs(self.profile_dir, exist_ok=True)
+                trace = os.path.join(self.profile_dir, f"trace_it{it}.json")
+                prof.export_chrome_trace(trace)
+                print(f"[profile] {trace}", flush=True)
+                prof = None
+            if it % self.log_interval == 0 or it == 1:
+                scalars = self.easy_logging(metrics)
+                dt = time.time() - t0
+                applied = int(self.applied)
+                d_it = max(it - last_logged_it, 1)
+                skip_pct = 100.0 * (1.0 - (applied - last_applied) / d_it)
+                last_applied, last_logged_it = applied, it
+                extra = f"  skip {skip_pct:.0f}%" if skip_pct > 0.5 else ""
+                # the dominant per-module gradient norm locates an exploding module
+                mods = {k[6:]: v for k, v in scalars.items() if k.startswith("grads/")}
+                if mods:
+                    top = max(mods, key=mods.get)
+                    extra += f"  top {top}:{mods[top]:.2e}"
+                print(f"it {it}  loss {scalars['loss']:.5f}  gnorm {scalars['grad_norm']:.3f}"
+                      f"{extra}  {dt:.2f}s", flush=True)
+                if skip_pct >= 50.0:
+                    print(f"[trainer] WARNING: guardrail skipped {skip_pct:.0f}% of the last "
+                          f"{d_it} steps (gnorm_ema {scalars['grad_norm_ema']:.3f}): training "
+                          "is largely frozen; raise exp.skip_grad_norm or switch to the "
+                          "relative exp.skip_grad_factor", flush=True)
+                t0 = time.time()
+                self._trim_host_heap()
+            saved = self.save_model and it % self.save_interval == 0
+            if saved:
+                self.save_checkpoint()
+                self._trim_host_heap()
+                self._maybe_recycle_process(it)
+            if beat is not None:
+                beat[0] = time.time()
+        if beat is not None:
+            self._stall_stop.set()  # horizon reached: retire the guard
+        return it

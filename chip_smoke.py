@@ -23,15 +23,36 @@ Phases (any failure exits non-zero before the last line is printed):
      order 2, guided) answers 3 requests: an 8.35 s clip with a 1500 ms
      centre gap, ~2.5 windows with four 25 ms gaps, and a clip whose gap
      exceeds 0.6 windows (chained); launch counts and the real-time factor;
-  6. the ``kernels`` JSON line, then the device JSON line.
+  6. training (the second main path) on a synthetic corpus in MAESTRO v3
+     layout (CSV + WAVs at 44.1 and 48 kHz, longer than load_len), full
+     flagship width, batch 4, f32:
+       a. the kernel against its plain version at batch 4, f32, tanh, at the
+          largest launch shapes: forward and the autograd.Function's dx,
+          dinv and dmod; then at every launch shape, timed at batch 4 f32
+          over one training forward as in phase 4;
+       b. one training step with the kernel and one with the plain version
+          (mixed-rate batch, TF32 off): loss and pre-clip gradient norm;
+          the first step leaves the parameters as they were (lr 0);
+       c. the gradients with remat "block" and "conv" against no remat,
+          with the peak memory of each;
+       d. four steps, a checkpoint at step 2, a fresh trainer resumed from
+          it takes steps 3 and 4 on the same batches and draws, and ends
+          where the uninterrupted trainer ended;
+       e. the entry point: aid_tpu_torch.train.main runs 4 steps from the
+          corpus (remat on, TF32 as the training default), checkpoints at 2
+          and 4; a second main resumes from the step-2 checkpoint and
+          reaches step 4; step time, peak memory and launches per step;
+  7. the ``kernels`` JSON line, then the device JSON line.
 
-f32 checks run with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
-torch.backends.cudnn.allow_tf32 both False).
+f32 comparisons run with TF32 off (torch.backends.cuda.matmul.allow_tf32
+and torch.backends.cudnn.allow_tf32 both False).
 """
 import contextlib
+import gc
 import json
 import math
 import os
+import shutil
 import sys
 import time
 
@@ -168,12 +189,13 @@ def launch_shapes(torch, net, audio, cn):
     return shapes
 
 
-def time_kernel(torch, fa, shapes, gelu, dt, batches):
+def time_kernel(torch, fa, shapes, gelu, dt, batches, time_batch=1):
     """At every launch shape: the kernel held against the plain version (one
     bf16 ulp) at each batch in ``batches``; then kernel and plain device
-    time at batch 1, summed over one denoiser call's launches, beside the
-    bound for the same work. Each shape is timed over enough distinct
-    inputs that none is still in L2 when it is read again."""
+    time at batch ``time_batch`` (at most the last of ``batches``), summed
+    over one denoiser call's launches, beside the bound for the same work.
+    Each shape is timed over enough distinct inputs that none is still in L2
+    when it is read again."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
     ms = plain_ms = bytes_ = ops = err = 0.0
@@ -187,21 +209,22 @@ def time_kernel(torch, fa, shapes, gelu, dt, batches):
             if not bf16_ulp_ok(y, yp):
                 fail(f"kernel disagrees with plain at launch shape {(B, R, C)}")
             err = max(err, (y.float() - yp.float()).abs().max().item())
-        step = 2 * R * C * x.element_size()              # one read, one write
-        sets = [(torch.randn((1, R, C), generator=gen, device="cuda").to(dt),
-                 inv[:1].contiguous(), mod[:1].contiguous(), gelu)
+        Bt = time_batch
+        step = 2 * Bt * R * C * x.element_size()         # one read, one write
+        sets = [(torch.randn((Bt, R, C), generator=gen, device="cuda").to(dt),
+                 inv[:Bt].contiguous(), mod[:Bt].contiguous(), gelu)
                 for _ in range(max(2, math.ceil(3 * l2 / step)))]
         with torch.no_grad():
             k = graph_ms(torch, fa._fused_cuda, sets)
             p = graph_ms(torch, fa.fused_plain, sets)
         del sets
-        log(json.dumps({"timing": "fused_adaln_fwd launch", "shape": [1, R, C],
+        log(json.dumps({"timing": "fused_adaln_fwd launch", "shape": [Bt, R, C],
                         "launches": n, "ms": k, "plain_ms": p,
                         "bytes_bound_ms": step / HBM_BYTES_PER_S * 1e3}))
         ms += n * k
         plain_ms += n * p
-        bytes_ += n * (step + 2 * C * 4)
-        ops += n * R * C * KERNEL_OPS[gelu]
+        bytes_ += n * (step + 2 * Bt * C * 4)
+        ops += n * Bt * R * C * KERNEL_OPS[gelu]
     bms, oms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bms, oms),
                 bound_by="bytes" if bms >= oms else "operations",
@@ -337,6 +360,375 @@ def phase_serving(torch, fa, np, batches):
     return launches, results[0]["rtf"]
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_BATCH = 4
+CORPUS_RATES = (44100, 48000, 44100, 48000)   # CSV order; one file each
+
+
+def write_corpus(np, root, load_len):
+    """MAESTRO v3 layout: maestro-v3.0.0.csv (split, year, audio_filename)
+    and 16-bit WAVs of music() a little longer than load_len."""
+    from aid_tpu_torch.data import audio_io
+    os.makedirs(os.path.join(root, "2015"), exist_ok=True)
+    rows = ["split,year,audio_filename"]
+    for j, fs in enumerate(CORPUS_RATES):
+        rel = f"2015/piece_{j}.wav"
+        audio_io.write(os.path.join(root, rel), music(np, load_len + 15000 + 1000 * j, fs, 20 + j),
+                       fs)
+        rows.append(f"train,2015,{rel}")
+    with open(os.path.join(root, "maestro-v3.0.0.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def train_overrides(corpus, model_dir, *extra):
+    return [f"dset.path={corpus}", "dset.years=[2015]", "dset.segments_per_file=1",
+            f"model_dir={model_dir}", "logging.print_model_summary=False", *extra]
+
+
+def mixed_batches(np, args, n):
+    """n host batches of [44.1k, 48k, 44.1k, 48k] segments drawn from the
+    corpus by MaestroDatasetFs."""
+    from aid_tpu_torch.data.maestro import MaestroDatasetFs
+    it = iter(MaestroDatasetFs(args))
+    pools = {44100: [], 48000: []}
+    out = []
+    while len(out) < n:
+        x, fs = next(it)
+        pools[fs].append(x)
+        if len(pools[44100]) >= 2 and len(pools[48000]) >= 2:
+            rows = [pools[44100].pop(), pools[48000].pop(), pools[44100].pop(),
+                    pools[48000].pop()]
+            out.append((np.stack(rows), np.array([44100, 48000, 44100, 48000])))
+    return out
+
+
+def numpy_draws(np, p, rng, B, L):
+    """One micro-batch of draws: polarity signs, sigmas from the training
+    distribution, sigma-scaled noise (as the trainer would draw them)."""
+    a = rng.random(B)
+    lo, hi = p.sigma_min ** (1 / p.rho_train), p.sigma_max ** (1 / p.rho_train)
+    sigma = ((hi + a * (lo - hi)) ** p.rho_train).astype(np.float32)
+    return [{"sign": np.where(rng.random((B, 1)) < 0.5, -1.0, 1.0).astype(np.float32),
+             "sigma": sigma,
+             "noise": (rng.standard_normal((B, L)) * sigma[:, None]).astype(np.float32)}]
+
+
+def phase_train_kernel(torch, fa):
+    log(f"== phase 6a: kernel vs plain at batch {TRAIN_BATCH}, f32, tanh (training shapes): "
+        "forward and the autograd.Function's dx, dinv, dmod")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for R, C in LARGEST:
+        B = TRAIN_BATCH
+        x = torch.randn((B, R, C), generator=gen, device="cuda")
+        inv = torch.rand(B, C, generator=gen, device="cuda") + 0.5
+        mod = torch.rand(B, C, generator=gen, device="cuda") + 0.5
+        g = torch.randn(x.shape, generator=gen, device="cuda")
+        res = {}
+        for name, fn in (("kernel", fa._Fused.apply), ("plain", fa.fused_plain)):
+            ts = [t.clone().requires_grad_(True) for t in (x, inv, mod)]
+            y = fn(*ts, "tanh")
+            res[name] = (y.detach(), torch.autograd.grad(y, ts, g))
+        (y, gk), (yp, gp) = res["kernel"], res["plain"]
+        err = (y - yp).abs().max().item()
+        ok = bool(((y - yp).abs() <= 1e-5 + 1e-5 * yp.abs()).all())
+        gerr = {n: ((a - b).abs().max() / b.abs().max()).item()
+                for n, a, b in zip(("dx", "dinv", "dmod"), gk, gp)}
+        log(json.dumps({"check": "fused_adaln_train", "dtype": "float32", "gelu": "tanh",
+                        "shape": [B, R, C], "max_abs_err": err, "fwd_ok": ok,
+                        "grad_rel_err": gerr, "grad_tol": 1e-4}))
+        if not ok or not max(gerr.values()) <= 1e-4:
+            fail(f"kernel disagrees with plain at training shape {(B, R, C)}")
+        worst = max(worst, err)
+    log("tolerances: forward |d| <= 1e-5 + 1e-5|ref|; dx, dinv, dmod max|d|/max|ref| <= 1e-4 "
+        "(dinv and dmod are f32 sums over R rows, taken in another order)")
+    return worst
+
+
+def launches_per_forward(net):
+    """Kernel launches of one forward: one per conv prologue (every
+    dilation of every AdaLNResBlock with a norm)."""
+    from aid_tpu_torch.models.unet_cqt import AdaLNResBlock
+    return sum(m.num_dils for m in net.modules() if isinstance(m, AdaLNResBlock) and m.use_norm)
+
+
+def flagship_trainer(torch, args):
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
+    net = tsetup.setup_network(args, device="cuda", seed=0, trainable=True)
+    net.init_weights(0, gate_scale=MAIN_SCALE)      # trained-like gates
+    tr = tsetup.setup_trainer(args, network=net, diff_params=tsetup.setup_diff_parameters(args))
+    tr.init_state()
+    return tr
+
+
+def phase_train_steps(torch, fa, np, corpus, work, card):
+    """6b-6d on the trainer's own methods, TF32 off."""
+    from aid_tpu_torch import train as ttrain
+    from aid_tpu_torch.training import utils as tutils
+    # full learning rate from step 2 (lr_rampup_it=1; step 1 still has lr 0):
+    # steps 3-4 then move the parameters by many f32 ulps, so the resumed
+    # run's agreement is measured against a real update
+    args = ttrain.compose_args(train_overrides(corpus, os.path.join(work, "steps"),
+                                               "exp.lr_rampup_it=1"))
+    L, B = int(args.exp.audio_len), TRAIN_BATCH
+    batches = mixed_batches(np, args, 4)
+    tr = flagship_trainer(torch, args)
+    per_fwd = launches_per_forward(tr.net)
+    rng = np.random.default_rng(7)
+    draws = [numpy_draws(np, tr.p, rng, B, L) for _ in batches]
+    audio, fs = batches[0]
+
+    x = torch.from_numpy(audio).cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = tutils.resample_batch(x, fs, int(args.exp.sample_rate))
+    torch.cuda.synchronize()
+    log(json.dumps({"check": "resample_batch", "form": "polyphase (unfold + matmul)",
+                    "rates": [int(v) for v in fs], "in_shape": list(x.shape),
+                    "finite": bool(torch.isfinite(y).all()),
+                    "peak_extra_mb": (torch.cuda.max_memory_allocated() - base) / 2 ** 20}))
+    del x, y
+
+    log("== phase 6b: one training step, kernel vs plain (full width, batch 4, f32, "
+        "mixed 44.1/48 kHz batch)")
+    p0 = [p.detach().clone() for p in tr.params]
+    out = {}
+    for plain in (False, True):
+        with plain_forced(fa) if plain else contextlib.nullcontext():
+            tr.init_state()
+            torch.cuda.synchronize()
+            fa.reset_launch_count()
+            t0 = time.time()
+            m = tr.train_step(audio, fs, draws[0])
+            out[plain] = (float(m["loss"]), float(m["grad_norm"]), fa.launch_count(),
+                          time.time() - t0)
+        unchanged = all(torch.equal(a, b) for a, b in zip(tr.params, p0))
+        if not unchanged:
+            fail("the first training step moved the parameters (lr must be 0)")
+    (lk, gk, nk, _), (lp, gp, n_plain, _) = out[False], out[True]
+    rec = {"check": "train_step", "loss": lk, "plain_loss": lp, "grad_norm": gk,
+           "plain_grad_norm": gp, "loss_rel_err": abs(lk - lp) / abs(lp),
+           "grad_norm_rel_err": abs(gk - gp) / abs(gp), "tol": 1e-4,
+           "launches": nk, "plain_launches": n_plain, "params_unchanged_after_step_1": True}
+    log(json.dumps(rec))
+    if not (math.isfinite(lk) and math.isfinite(gk) and rec["loss_rel_err"] <= 1e-4
+            and rec["grad_norm_rel_err"] <= 1e-4):
+        fail(f"training step, kernel vs plain: {rec}")
+    if nk != 2 * per_fwd or n_plain != 0:
+        fail(f"expected {2 * per_fwd} kernel launches in a remat training step: {rec}")
+
+    log("== phase 6c: gradients with remat 'block' and 'conv' against no remat (TF32 off); "
+        "time and peak memory of each with TF32 off and on")
+    net = tr.net
+
+    def fwd_bwd(mode, tf32):
+        net.remat, net.remat_policy = mode != "none", "block" if mode == "none" else mode
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_count()
+            t0 = time.time()
+            loss, _, _, g = tr.loss_and_grads(audio[None], fs[None], draws[0])
+            float(loss)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        return g, {"peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "resident_gb": resident / 2 ** 30, "launches": fa.launch_count(),
+                   "forward_backward_s": time.time() - t0}
+
+    grads, mem = {}, {}
+    for mode in ("none", "block", "conv"):
+        g, off = fwd_bwd(mode, False)
+        grads[mode] = [t.clone() for t in g]
+        del g
+        _, on = fwd_bwd(mode, True)
+        mem[mode] = {"tf32_off": off, "tf32_on": on}
+        if off["launches"] != per_fwd * (1 if mode == "none" else 2):
+            fail(f"launches per forward and backward, remat {mode}: {off}")
+    net.remat, net.remat_policy = True, "block"
+    scale = max(t.abs().max().item() for t in grads["none"])
+    for mode in ("block", "conv"):
+        err = max((a - b).abs().max().item() for a, b in zip(grads[mode], grads["none"])) / scale
+        rec = {"check": "remat_grads", "policy": mode, "grad_rel_err": err, "tol": 1e-4,
+               **mem[mode], "no_remat": mem["none"], "card": card}
+        log(json.dumps(rec))
+        if not err <= 1e-4:
+            fail(f"remat {mode} gradients differ from no remat: {rec}")
+    del grads
+
+    log("== phase 6d: 4 steps; a fresh trainer resumed from the step-2 checkpoint takes "
+        "steps 3-4 on the same batches and draws")
+    tr.init_state()
+    times, path, p2 = [], None, None
+    for i, ((a, f), d) in enumerate(zip(batches, draws)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = tr.train_step(a, f, d)
+        if not math.isfinite(float(m["loss"])):
+            fail(f"non-finite loss at step {tr.it}")
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        if tr.it == 2:
+            path = tr.save_checkpoint()
+            p2 = [p.detach().clone() for p in tr.params]
+    whole = [p.detach().clone() for p in tr.params]
+    del tr, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr2 = flagship_trainer(torch, args)
+    if not tr2.resume_from_checkpoint(path) or tr2.it != 2:
+        fail("the step-2 checkpoint did not resume")
+    for (a, f), d in list(zip(batches, draws))[2:]:
+        tr2.train_step(a, f, d)
+    moved = max((b - a).abs().max().item() for a, b in zip(p2, whole))
+    dev = max((a - b).abs().max().item() for a, b in zip(tr2.params, whole))
+    num = sum(((a - b).double() ** 2).sum().item() for a, b in zip(tr2.params, whole))
+    den = sum(((b - a).double() ** 2).sum().item() for a, b in zip(p2, whole))
+    rec = {"check": "resume_continues", "steps_3_4_max_move": moved, "max_abs_dev": dev,
+           "update_rel_l2": (num / den) ** 0.5 if den else float("inf"),
+           "tol": {"max_abs_dev": "0.1 x max move", "update_rel_l2": 1e-3},
+           "step_s": times, "card": card}
+    log(json.dumps(rec))
+    if not (moved > 0 and dev <= 0.1 * moved and rec["update_rel_l2"] <= 1e-3):
+        fail(f"resumed training left the uninterrupted run: {rec}")
+    del tr2, p2, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_s_tf32_off": float(np.median(times[1:])), "peak_gb": mem,
+            "launches_per_step": 2 * per_fwd, "launches_per_forward": per_fwd}
+
+
+def phase_train_entry(torch, fa, np, corpus, work, card):
+    """6e: the entry point, twice; launches counted from the first main to
+    the end of the second."""
+    from aid_tpu_torch import train as ttrain
+    from aid_tpu_torch.training.trainer import Trainer
+    from aid_tpu_torch.utils import checkpoint as ckpt
+    log("== phase 6e: aid_tpu_torch.train.main, 4 steps from the corpus, then a resumed main")
+    md = os.path.join(work, "main")
+    ov = train_overrides(corpus, md, "exp.total_its=4", "logging.save_interval=2",
+                         "logging.log_interval=1", "logging.remove_last_checkpoint=False")
+    steps, expect = [], {}
+    orig = Trainer.train_step
+
+    def timed(self, audio, fs, draws=None):
+        it0 = self.it
+        if "resumed_from" in expect and not any(s["run"] == 2 for s in steps):
+            ref = expect["resumed_from"]
+            same = it0 == ref["it"] and int(self.count) == ref["optimizer"]["count"] and all(
+                torch.equal(p.detach().cpu(), ref["network"][n])
+                for n, p in zip(self.names, self.params))
+            if not same:
+                fail("the resumed main does not hold the step-2 checkpoint's state")
+        before = [p.detach().clone() for p in self.params] if it0 < 2 else None
+        torch.cuda.synchronize()
+        n0 = fa.launch_count()
+        t0 = time.time()
+        m = orig(self, audio, fs, draws)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        rec = {"run": 2 if "resumed_from" in expect else 1, "it": self.it,
+               "wall_s": time.time() - t0, "launches": fa.launch_count() - n0,
+               "expected_launches": launches_per_forward(self.net) * (2 if self.net.remat else 1),
+               "remat": bool(self.net.remat), "loss": loss, "rates": sorted({int(v) for v in fs})}
+        if before is not None:
+            rec["params_changed"] = any(not torch.equal(a, b)
+                                        for a, b in zip(before, self.params))
+        steps.append(rec)
+        log(json.dumps({"train_step": rec}))
+        return m
+
+    torch.backends.cudnn.allow_tf32 = True       # the training default (README, TF32)
+    Trainer.train_step = timed
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()                  # the training main path starts here
+        t0 = time.time()
+        if ttrain.main(ov) != 0:
+            fail("train.main returned non-zero")
+        wall1 = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gc.collect()
+        torch.cuda.empty_cache()
+        names = [os.path.basename(p) for p in ckpt.list_checkpoints(md, "22k_8s")]
+        if names != ["22k_8s-2.pt", "22k_8s-4.pt"]:
+            fail(f"checkpoints after the first main: {names}")
+        expect["resumed_from"] = ckpt.load(os.path.join(md, "22k_8s-2.pt"))
+        os.remove(os.path.join(md, "22k_8s-4.pt"))
+        if ttrain.main(ov) != 0:
+            fail("the resumed train.main returned non-zero")
+        launches = fa.launch_count()             # ... and ends here
+    finally:
+        Trainer.train_step = orig
+        torch.backends.cudnn.allow_tf32 = False
+    del expect["resumed_from"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    final = ckpt.load(os.path.join(md, "22k_8s-4.pt"))
+    run1 = [s for s in steps if s["run"] == 1]
+    run2 = [s for s in steps if s["run"] == 2]
+    rec = {"check": "train_entry", "steps_run1": [s["it"] for s in run1],
+           "steps_run2": [s["it"] for s in run2], "final_it": final["it"],
+           "final_count": final["optimizer"]["count"],
+           "launches": launches, "launches_per_step": sorted({s["launches"] for s in steps}),
+           "mixed_rate_steps": sum(len(s["rates"]) > 1 for s in steps),
+           "step_s_median_after_first": float(np.median([s["wall_s"] for s in run1[1:]])),
+           "run1_wall_s": wall1, "peak_gb": peak, "tf32_convs": True, "card": card}
+    log(json.dumps(rec))
+    ok = (rec["steps_run1"] == [1, 2, 3, 4] and rec["steps_run2"] == [3, 4]
+          and final["it"] == 4 and final["optimizer"]["count"] == 4
+          and all(math.isfinite(s["loss"]) for s in steps)
+          and run1[0]["params_changed"] is False and run1[1]["params_changed"] is True
+          and all(s["remat"] and s["launches"] == s["expected_launches"] for s in steps)
+          and launches == sum(s["launches"] for s in steps)
+          and rec["mixed_rate_steps"] > 0
+          and all(torch.isfinite(v).all() for v in final["network"].values()))
+    if not ok:
+        fail(f"training entry point: {rec}")
+    return rec
+
+
+def phase_training(torch, fa, np, here, card, shapes):
+    from aid_tpu_torch.utils.config import compose
+    log("== phase 6: training at full flagship width, batch 4, f32")
+    work = os.path.join(here, "experiments", "chip_smoke_training")
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = os.path.join(work, "maestro")
+    try:
+        write_corpus(np, corpus, int(compose().dset.load_len))
+        worst = phase_train_kernel(torch, fa)
+        log(f"== phase 6a, timing: kernel at every launch shape at batch {TRAIN_BATCH}, f32, "
+            "tanh, over one training forward")
+        timing = time_kernel(torch, fa, shapes, "tanh", torch.float32, [TRAIN_BATCH],
+                             time_batch=TRAIN_BATCH)
+        log(json.dumps({"timing": "fused_adaln_fwd per training forward (f32, batch 4)",
+                        **timing, "card": card}))
+        worst = max(worst, timing["max_abs_err"])
+        steps = phase_train_steps(torch, fa, np, corpus, work, card)
+        entry = phase_train_entry(torch, fa, np, corpus, work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({"training": {"kernel_ms_per_forward": timing["ms"],
+                                 "kernel_bound_ms_per_forward": timing["bound_ms"],
+                                 "step_s_entry_tf32": entry["step_s_median_after_first"],
+                                 "step_s_tf32_off": steps["step_s_tf32_off"],
+                                 "peak_gb_entry": entry["peak_gb"],
+                                 "peak_gb_by_remat": {
+                                     k: {t: v[t]["peak_gb"] for t in v}
+                                     for k, v in steps["peak_gb"].items()},
+                                 "launches_per_step": steps["launches_per_step"],
+                                 "launches_per_forward": steps["launches_per_forward"],
+                                 "card": card}}))
+    return entry["launches"], worst
+
+
 def main():
     import numpy as np
     import torch
@@ -376,12 +768,15 @@ def main():
 
     launches, rtf = phase_serving(torch, fa, np, batches)
     log(json.dumps({"inpaint_rtf_request_a": rtf, "card": card}))
+    train_launches, train_err = phase_training(torch, fa, np, here, card, shapes)
+    log(json.dumps({"launches_by_path": {"serving": launches, "training": train_launches}}))
 
+    log("== phase 7: kernels")
     kernels = [{"name": "fused_adaln_fwd", "route": "triton",
                 "source": "aid_tpu_torch/ops/fused_adaln.py",
                 "replaces": "aid_tpu/ops/pallas/fused_adaln.py:62",
-                "launches": launches,
-                "max_abs_err": max(worst[("bfloat16", "tanh")], timing["max_abs_err"]),
+                "launches": launches + train_launches,
+                "max_abs_err": max(worst[("bfloat16", "tanh")], timing["max_abs_err"], train_err),
                 "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                 "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
                 "library_ms": None}]

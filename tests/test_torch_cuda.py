@@ -73,3 +73,44 @@ def test_tiny_denoiser_launches_once_per_layer(cuda, monkeypatch):
     # 3 init + (1+2+2) encoder + 2 bottleneck + 1 out + 5 decoder + 3 out
     assert n == 3 + 5 + 2 + 1 + 5 + 3
     assert ((y - yp).abs().max() / yp.abs().max()).item() < 1e-5
+
+
+def test_tiny_training_steps_on_the_card_match_the_cpu(cuda, tmp_path):
+    """Two remat training steps of the tiny net on mixed-rate native audio,
+    on the card and on the CPU from the same weights and draws: the kernel
+    launches in the forward and again in the recomputation, and loss,
+    pre-clip gradient norm and the update agree (f32, TF32 off; the two
+    devices sum in other orders)."""
+    import numpy as np
+
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.train import compose_args
+
+    args = compose_args([
+        "exp.audio_len=2048", "exp.lr_rampup_it=1", "network.cqt.num_octs=3",
+        "network.cqt.bins_per_oct=8", "network.Ns=[8,16,16]", "network.num_dils=[1,1,1]",
+        "network.attention_layers=[0,0,1,1]", "logging.print_model_summary=False",
+        f"model_dir={tmp_path}"])
+    rng = np.random.default_rng(0)
+    audio = (rng.standard_normal((4, 4400)) * 0.1).astype(np.float32)
+    fs = np.array([44100, 48000, 44100, 48000])
+    sigma = np.exp(rng.uniform(-6, 1, 4)).astype(np.float32)
+    draws = [{"sign": np.array([[1.0], [-1.0], [-1.0], [1.0]], np.float32), "sigma": sigma,
+              "noise": (rng.standard_normal((4, 2048)) * sigma[:, None]).astype(np.float32)}]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        net = tsetup.setup_network(args, device=dev, seed=3, trainable=True)
+        tr = tsetup.setup_trainer(args, network=net, diff_params=tsetup.setup_diff_parameters(args))
+        tr.init_state()
+        p0 = [p.detach().cpu().clone() for p in tr.params]
+        fa.reset_launch_count()
+        metrics = [tr.train_step(audio, fs, draws) for _ in range(2)]
+        per_fwd = sum(m.num_dils for m in net.modules() if isinstance(m, tunet.AdaLNResBlock))
+        res[dev] = (fa.launch_count(), 2 * 2 * per_fwd,
+                    [(float(m["loss"]), float(m["grad_norm"])) for m in metrics],
+                    [p.detach().cpu() - a for p, a in zip(tr.params, p0)])
+    assert res["cpu"][0] == 0 and res["cuda"][0] == res["cuda"][1]
+    np.testing.assert_allclose(res["cuda"][2], res["cpu"][2], rtol=1e-4)
+    num = sum(float((a - b).double().pow(2).sum()) for a, b in zip(res["cuda"][3], res["cpu"][3]))
+    den = sum(float(b.double().pow(2).sum()) for b in res["cpu"][3])
+    assert den > 0 and (num / den) ** 0.5 <= 1e-2

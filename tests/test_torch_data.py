@@ -1,0 +1,182 @@
+"""The port's data layer (``aid_tpu_torch/data``) against the JAX package's:
+WAV I/O, the MAESTRO loaders and batching, on a generated MAESTRO-layout
+tree (CSV + WAVs at 44.1 and 48 kHz). For the same seed and files both
+packages yield the same segments."""
+import csv
+import itertools
+
+import numpy as np
+import pytest
+import scipy.signal
+import torch.distributed
+
+from aid_tpu.data import audio_io as jaudio
+from aid_tpu.data import loader as jloader
+from aid_tpu.data import maestro as jmaestro
+from aid_tpu.utils.config import compose as jcompose
+from aid_tpu_torch import setup as tsetup
+from aid_tpu_torch.data import audio_io, loader, maestro
+from aid_tpu_torch.utils.config import compose
+
+
+@pytest.fixture(scope="module")
+def wav_tree(tmp_path_factory):
+    root = tmp_path_factory.mktemp("maestro_torch")
+    rows = []
+    rng = np.random.default_rng(0)
+    for year, split in ((2015, "train"), (2017, "train"), (2009, "test")):
+        (root / str(year)).mkdir()
+        for j, fs in enumerate((44100, 48000)):
+            rel = f"{year}/file_{j}.wav"
+            n = 12000 + 1000 * j + 100 * (year % 10)
+            audio_io.write(str(root / rel), rng.standard_normal(n) * 0.2, fs)
+            rows.append({"year": year, "split": split, "audio_filename": rel})
+    with open(root / "maestro-v3.0.0.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["year", "split", "audio_filename"])
+        w.writeheader()
+        w.writerows(rows)
+    return str(root)
+
+
+OVERRIDES = ["dset.years=[2015,2017]", "dset.load_len=4096", "dset.segments_per_file=3",
+             "exp.audio_len=2000", "exp.resample_factor=2", "exp.seed=7",
+             "dset.test.num_samples=2"]
+
+
+def _args(root, *extra):
+    return compose(overrides=[f"dset.path={root}", *OVERRIDES, *extra])
+
+
+def _jargs(root, *extra):
+    return jcompose(overrides=[f"dset.path={root}", *OVERRIDES, *extra])
+
+
+def test_wav_roundtrip_and_segments(tmp_path):
+    """16-bit WAV written by the port reads back within two quantisation
+    steps (scaled by 32767 and truncated, read back over 32768), a segment
+    read equals the slice of the whole, and the JAX package reads the same
+    samples and header."""
+    x = (np.sin(np.linspace(0, 100, 5000)) * 0.7).astype(np.float32)
+    p = str(tmp_path / "a.wav")
+    audio_io.write(p, x, 16000)
+    assert audio_io.info(p) == (5000, 16000, 1) == tuple(jaudio.info(p))
+    y, fs = audio_io.read(p)
+    assert fs == 16000
+    np.testing.assert_allclose(y, x, atol=2.0 / 32767)
+    seg, _ = audio_io.read(p, 1000, 256)
+    np.testing.assert_array_equal(seg, y[1000:1256])
+    np.testing.assert_array_equal(jaudio.read(p, 1000, 256)[0], seg)
+    # clipping input is peak-normalised before writing
+    audio_io.write(p, 2 * x, 16000)
+    np.testing.assert_allclose(audio_io.read(p)[0], x / 0.7 * (0.7 / np.abs(x).max()),
+                               atol=2.0 / 32767)
+
+
+def test_flac_raises_naming_the_roadmap(tmp_path):
+    p = str(tmp_path / "a.flac")
+    with open(p, "wb") as f:
+        f.write(b"fLaC")
+    for fn in (audio_io.info, audio_io.read):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            fn(p)
+
+
+def test_resample_host_is_resample_poly():
+    x = np.random.default_rng(1).standard_normal(4800).astype(np.float32)
+    np.testing.assert_allclose(audio_io.resample_host(x, 48000, 22050),
+                               scipy.signal.resample_poly(x, 147, 320), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(audio_io.resample_host(x, 22050, 22050), x)
+
+
+def test_maestro_fs_segments_match_jax(wav_tree):
+    """Same seed, same files: the port yields the JAX loader's segments
+    (file draws, segment starts and the native rate of each)."""
+    ours = maestro.MaestroDatasetFs(_args(wav_tree))
+    ref = jmaestro.MaestroDatasetFs(_jargs(wav_tree))
+    assert ours.files == ref.files and len(ours.files) == 4
+    rates = set()
+    for (x, fs), (xr, fsr) in itertools.islice(zip(iter(ours), iter(ref)), 13):
+        assert fs == fsr and x.shape == (4096,)
+        np.testing.assert_array_equal(x, xr)
+        rates.add(fs)
+    assert rates == {44100, 48000}
+
+
+def test_batched_matches_jax(wav_tree):
+    ours = loader.batched(iter(maestro.MaestroDatasetFs(_args(wav_tree))), 3)
+    ref = jloader.batched(iter(jmaestro.MaestroDatasetFs(_jargs(wav_tree))), 3)
+    for _ in range(3):
+        (a, f), (ar, fr) = next(ours), next(ref)
+        assert a.shape == (3, 4096) and a.dtype == np.float32
+        np.testing.assert_array_equal(a, ar)
+        np.testing.assert_array_equal(f, fr)
+    # shorter segments are zero-padded to the longest
+    b, fs = next(loader.batched(iter([(np.ones(3), 1), (np.ones(5), 2)]), 2))
+    np.testing.assert_array_equal(b, [[1, 1, 1, 0, 0], [1, 1, 1, 1, 1]])
+
+
+def test_fixed_rate_and_test_chunks(wav_tree):
+    """MaestroDataset resamples the same segments on the host to the model
+    rate, zero-padded to its length; the test chunks are the JAX class's
+    (same files, offsets, lengths)."""
+    seg = next(iter(maestro.MaestroDatasetFs(_args(wav_tree))))
+    y, fs = next(iter(maestro.MaestroDataset(_args(wav_tree))))
+    assert fs == 22050 and y.shape == (2000,)
+    ref = audio_io.resample_host(seg[0], seg[1], 22050)
+    np.testing.assert_array_equal(y, np.pad(ref, (0, max(0, 2000 - ref.size)))[:2000])
+    ours = list(tsetup.setup_dataset_test(_args(wav_tree)))
+    ref = list(jmaestro.MaestroDatasetTestChunks(_jargs(wav_tree)))
+    assert len(ours) == len(ref) == 2
+    for (x, fs, name), (xr, fsr, namer) in zip(ours, ref):
+        assert (fs, name) == (fsr, namer) and x.shape == (4000,)
+        np.testing.assert_array_equal(x, xr)
+
+
+def test_overfit_and_unusable_corpus(wav_tree):
+    it = iter(maestro.MaestroDatasetFs(_args(wav_tree, "dset.overfit=True")))
+    a, b = next(it), next(it)
+    np.testing.assert_array_equal(a[0], b[0])
+    with pytest.raises(RuntimeError, match="shorter than load_len"):
+        next(iter(maestro.MaestroDatasetFs(_args(wav_tree, "dset.load_len=10000000"))))
+
+
+def test_process_seed_uses_the_rank_only_when_distributed(monkeypatch):
+    assert maestro._process_seed(42) == 42
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 2)
+    assert maestro._process_seed(42) == 42 + 2 * 1000003
+
+
+def test_prefetcher_hands_on_errors():
+    def gen():
+        yield 1
+        raise KeyError("boom")
+
+    p = loader.Prefetcher(gen(), depth=2)
+    assert next(p) == 1
+    with pytest.raises(KeyError):
+        next(p)
+
+
+def test_multiprocess_loader_matches_its_worker_stream(wav_tree):
+    """One decode worker yields exactly the batches of the dataset seeded
+    as that worker (seed + 7919); a worker's failure reaches the trainer."""
+    args = _args(wav_tree)
+    mp = loader.MultiProcessLoader(args, str(args.dset.callable), batch_size=2,
+                                   num_workers=1)
+    try:
+        ref = loader.batched(iter(maestro.MaestroDatasetFs(
+            _args(wav_tree, "exp.seed=7926"))), 2)
+        for _ in range(3):
+            (a, f), (ar, fr) = next(mp), next(ref)
+            np.testing.assert_array_equal(a, ar)
+            np.testing.assert_array_equal(f, fr)
+    finally:
+        mp.close()
+    bad = _args(wav_tree, "dset.load_len=10000000")
+    mp = loader.MultiProcessLoader(bad, str(bad.dset.callable), batch_size=1, num_workers=1)
+    try:
+        with pytest.raises(RuntimeError, match="data worker failed"):
+            next(mp)
+    finally:
+        mp.close()

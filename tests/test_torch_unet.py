@@ -199,10 +199,34 @@ def _net_args(**net_over):
     return EasyDict(network=net, exp=dict(sample_rate=FS, audio_len=LEN))
 
 
-@pytest.mark.parametrize("key,value", [("quant", "int8"), ("context_parallel", True),
-                                       ("remat", True), ("use_fencoding", True)])
-def test_unported_network_options_raise(key, value):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("policy", ["block", "conv"])
+def test_remat_gradients_equal_no_remat(policy):
+    """Rematerialised blocks recompute the same ops in the backward: the
+    loss and every parameter gradient equal the run without remat (CPU,
+    deterministic kernels: exactly). Without gradients remat is inert."""
+    audio, cnoise = inputs(7)
+    grads = {}
+    for remat in (False, True):
+        net = tunet.build_unet(_net_args(remat=remat, remat_policy=policy)).init_weights(
+            0, gate_scale=tunet.MAIN_SCALE)
+        assert net.remat is remat
+        y = net(torch.from_numpy(audio), torch.from_numpy(cnoise))
+        (y ** 2).mean().backward()
+        grads[remat] = (y.detach(), [p.grad for p in net.parameters()])
+    torch.testing.assert_close(grads[True][0], grads[False][0], rtol=0, atol=0)
+    for a, b in zip(grads[True][1], grads[False][1]):
+        if b is None:
+            assert a is None
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("key,value,exc", [("quant", "int8", NotImplementedError),
+                                           ("context_parallel", True, NotImplementedError),
+                                           ("remat_policy", "dots", ValueError),
+                                           ("use_fencoding", True, NotImplementedError)])
+def test_unported_network_options_raise(key, value, exc):
+    with pytest.raises(exc):
         tunet.build_unet(_net_args(**{key: value}))
 
 
