@@ -13,11 +13,16 @@ reproduce); when not given they are drawn from a ``torch.Generator``.
 
 Hooks (all optional): degradation(x) -> observation-space prediction;
 proj(x) -> data-consistency projection; hpf(x) -> band-limit filter.
+
+With ``SamplerConfig.record`` (the tester's ``rid`` mode) a score function
+returns ``(score, Record)`` and ``heun_sample`` returns ``(x, Record)``,
+the Record's fields stacked over the steps ``[T, B, L]``: each step records
+its first score call, with ``xt2`` the step's updated x.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,6 +45,19 @@ class SamplerConfig:
     # "generic":    s = t^2 xi / (|g|/sqrt(L) t + eps) (the x_hat form of the
     #               reference's generic sampler)
     guidance_eps: str = "inpainting"
+    record: bool = False             # rid-style trajectory recording
+
+
+class Record(NamedTuple):
+    """Per-step intermediates: the churned x, the denoised estimate, the
+    scaled guidance gradient, the guided estimate, the projected estimate
+    and the step's updated x."""
+    xt: torch.Tensor
+    denoised: torch.Tensor
+    grads: torch.Tensor
+    grad_update: torch.Tensor
+    pocs: torch.Tensor
+    xt2: torch.Tensor
 
 
 def _residual_norm(cfg: SamplerConfig, r: torch.Tensor) -> torch.Tensor:
@@ -60,8 +78,15 @@ def make_score_fn(p: edm.EDMParams, cfg: SamplerConfig,
                   degradation: Optional[Callable] = None,
                   proj: Optional[Callable] = None,
                   hpf: Optional[Callable] = None) -> Callable:
-    """score(x, t) -> score, with the three branches of the JAX package."""
+    """score(x, t) -> score (and its Record when ``cfg.record``), with the
+    three branches of the JAX package."""
     use_hpf = cfg.filter_out_cqt_DC_Nyq and hpf is not None
+
+    def out(score, *fields):
+        if not cfg.record:
+            return score
+        zero = torch.zeros_like(score)
+        return score, Record(*(zero if f is None else f for f in fields), zero)
 
     def x_hat_of(x, t):
         xh = denoise(x, t)
@@ -70,7 +95,8 @@ def make_score_fn(p: edm.EDMParams, cfg: SamplerConfig,
     if y is None:
         def score_uncond(x, t):
             with torch.no_grad():
-                return (x_hat_of(x, t) - x) / t ** 2
+                xh = x_hat_of(x, t)
+                return out((xh - x) / t ** 2, x, xh, None, xh, xh)
         return score_uncond
 
     if cfg.xi > 0:
@@ -95,7 +121,7 @@ def make_score_fn(p: edm.EDMParams, cfg: SamplerConfig,
                 s = s.reshape(-1, *([1] * (x.dim() - 1)))
                 xh1 = xh - s * g
                 xh2 = proj(xh1) if (cfg.data_consistency and proj is not None) else xh1
-                return (xh2 - x) / t ** 2
+                return out((xh2 - x) / t ** 2, x, xh, s * g, xh1, xh2)
         return score_guided
 
     def score_replace(x, t):
@@ -103,7 +129,7 @@ def make_score_fn(p: edm.EDMParams, cfg: SamplerConfig,
         with torch.no_grad():
             xh = denoise(x, t)
             xh2 = proj(xh) if proj is not None else xh
-            return (xh2 - x) / t ** 2
+            return out((xh2 - x) / t ** 2, x, xh, None, xh, xh2)
     return score_replace
 
 
@@ -112,11 +138,12 @@ def heun_sample(shape: Tuple[int, ...], p: edm.EDMParams, cfg: SamplerConfig,
                 prior: Optional[torch.Tensor] = None,
                 churn: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                device=None) -> torch.Tensor:
+                device=None):
     """Run the sampler: prior at t[0]; per step churn t_hat = t + gamma t with
     sqrt(t_hat^2 - t^2) extra noise, the Euler step d = -t_hat score and (at
     order 2, except on the last step) the Heun correction at t_next; a final
-    projection when data consistency is "end"."""
+    projection when data consistency is "end". Returns x, or (x, Record)
+    when ``cfg.record``."""
     if device is None and prior is not None:
         device = prior.device
     else:
@@ -131,20 +158,29 @@ def heun_sample(shape: Tuple[int, ...], p: edm.EDMParams, cfg: SamplerConfig,
         raise ValueError(f"noise shapes prior {tuple(prior.shape)}, churn "
                          f"{tuple(churn.shape)} do not fit {tuple(shape)} x T={cfg.T}")
     x = prior * t[0]
+    records = []
     for i in range(cfg.T):
         last = i == cfg.T - 1
         t_i, t_next, g_i = t[i], t[i + 1], gamma[i]
         t_hat = t_i + g_i * t_i
         extra = torch.clamp_min(t_hat ** 2 - t_i ** 2, 0.0).sqrt()
         x = x + extra * (churn[i] * p.Snoise)
-        d = -t_hat * score_fn(x, t_hat)
+        score = score_fn(x, t_hat)
+        if cfg.record:
+            score, rec = score
+        d = -t_hat * score
         h = t_next - t_hat
         if cfg.order == 2 and not last:
             x_prime = x + h * d
-            d_prime = -t_next * score_fn(x_prime, t_next)
+            score2 = score_fn(x_prime, t_next)
+            d_prime = -t_next * (score2[0] if cfg.record else score2)
             x = x + h * 0.5 * (d + d_prime)
         else:
             x = x + h * d
+        if cfg.record:
+            records.append(rec._replace(xt2=x))
     if cfg.data_consistency_end and proj_end is not None:
         x = proj_end(x)
+    if cfg.record:
+        return x, Record(*(torch.stack(f) for f in zip(*records)))
     return x

@@ -1,14 +1,20 @@
 """Task-level sampler facade (port of ``aid_tpu/sampling/sampler.py``):
-unconditional generation and long/short-gap inpainting. The other tasks
-(spectrogram inpainting, bandwidth extension, declipping, phase retrieval,
-compressive sensing, autoregressive outpainting) wait for a later slice.
+unconditional generation, long/short-gap inpainting, spectrogram
+inpainting, bandwidth extension, declipping, phase retrieval, compressive
+sensing and autoregressive outpainting.
+
+Every ``predict_*`` builds its score function and runs ``heun_sample``.
+Noise is drawn from ``generator`` unless the standard-normal ``prior``
+[B, L] and ``churn`` [T, B, L] are injected. With ``rid`` each call returns
+(x, Record) instead of x.
 
 The tester's ``diff_params`` override applies at construction
 (``same_as_training: False`` swaps in the test-time EDM parameters).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Sequence
 
 import torch
 
@@ -18,11 +24,12 @@ from aid_tpu_torch.sampling.heun import SamplerConfig, heun_sample, make_score_f
 
 
 class Sampler:
-    def __init__(self, model, diff_params, args):
+    def __init__(self, model, diff_params, args, rid: bool = False):
         """model: the UnetCQT module (on its device); diff_params: edm.EDM or
-        EDMParams; args: the config tree."""
+        EDMParams; args: the config tree; rid: record every trajectory."""
         self.model = model
         self.args = args
+        self.rid = rid
         p = diff_params.params if hasattr(diff_params, "params") else diff_params
         t = args.tester
         if not t.diff_params.same_as_training:
@@ -36,7 +43,8 @@ class Sampler:
             smoothl1_beta=float(t.posterior_sampling.get("smoothl1_beta", 1.0)),
             data_consistency=bool(dc.use) and dc.type == "always",
             data_consistency_end=bool(dc.use) and dc.type == "end",
-            filter_out_cqt_DC_Nyq=bool(t.filter_out_cqt_DC_Nyq))
+            filter_out_cqt_DC_Nyq=bool(t.filter_out_cqt_DC_Nyq),
+            record=rid)
         self.smooth = bool(dc.use) and bool(dc.get("smooth", False))
         self.hann_size = int(dc.get("hann_size", 50))
 
@@ -52,15 +60,29 @@ class Sampler:
         cqt = getattr(self.model, "cqt", None)
         return None if cqt is None else cqt.apply_hpf_DC
 
+    def _generic_cfg(self) -> SamplerConfig:
+        """The tasks of the reference's generic sampler (bandwidth extension,
+        declipping, phase retrieval, compressive sensing) place the guidance
+        epsilon as s = t^2 xi / (|g|/sqrt(L) t + eps)."""
+        return dataclasses.replace(self.cfg, guidance_eps="generic")
+
+    def _sample(self, shape, cfg: SamplerConfig, y=None, degradation=None, proj=None,
+                proj_end=None, generator=None, prior=None, churn=None):
+        score = make_score_fn(self.p, cfg, self._denoise, y=y, degradation=degradation,
+                              proj=proj, hpf=self._hpf())
+        return heun_sample(tuple(shape), self.p, cfg, score, proj_end=proj_end,
+                           prior=prior, churn=churn, generator=generator,
+                           device=self.device)
+
+    # ----------------------------------------------------------------- tasks
+
     def predict_unconditional(self, shape, generator: Optional[torch.Generator] = None,
-                              prior=None, churn=None) -> torch.Tensor:
-        score = make_score_fn(self.p, self.cfg, self._denoise, hpf=self._hpf())
-        return heun_sample(tuple(shape), self.p, self.cfg, score, prior=prior,
-                           churn=churn, generator=generator, device=self.device)
+                              prior=None, churn=None):
+        return self._sample(shape, self.cfg, generator=generator, prior=prior, churn=churn)
 
     def predict_inpainting(self, y_masked: torch.Tensor, mask: torch.Tensor,
                            generator: Optional[torch.Generator] = None,
-                           prior=None, churn=None) -> torch.Tensor:
+                           prior=None, churn=None):
         """Long/short-gap inpainting: the degradation is the mask multiply;
         the projection uses the Hann-smoothed mask (each row its own)."""
         if self.smooth:
@@ -69,9 +91,98 @@ class Sampler:
         else:
             smooth = mask
         proj = degr.inpainting_projector(y_masked, smooth)
-        score = make_score_fn(self.p, self.cfg, self._denoise, y=y_masked,
-                              degradation=degr.time_mask(mask), proj=proj,
-                              hpf=self._hpf())
-        return heun_sample(tuple(y_masked.shape), self.p, self.cfg, score,
-                           proj_end=proj, prior=prior, churn=churn,
-                           generator=generator, device=y_masked.device)
+        return self._sample(y_masked.shape, self.cfg, y=y_masked,
+                            degradation=degr.time_mask(mask), proj=proj, proj_end=proj,
+                            generator=generator, prior=prior, churn=churn)
+
+    def predict_spectrogram_inpainting(self, y_masked: torch.Tensor, mask_FT: torch.Tensor,
+                                       generator: Optional[torch.Generator] = None,
+                                       prior=None, churn=None):
+        """Inpainting of a (F, frames) STFT-domain mask: the degradation is
+        the masked resynthesis A; the projection is y + x - A(x)."""
+        apply_mask = degr.spectral_mask(mask_FT, self.args.tester.spectrogram_inpainting.stft)
+        proj = degr.spectral_projector(y_masked, apply_mask)
+        return self._sample(y_masked.shape, self.cfg, y=y_masked, degradation=apply_mask,
+                            proj=proj, proj_end=proj, generator=generator, prior=prior,
+                            churn=churn)
+
+    def predict_bwe(self, y_lowpassed: torch.Tensor, fc: float, fs: float,
+                    filter_type: str = "firwin", order: int = 200,
+                    generator: Optional[torch.Generator] = None, prior=None, churn=None):
+        """Bandwidth extension: the degradation is the lowpass LPF
+        (``degradations.bwe_lowpass``); the projection is y + x - LPF(x).
+        ``y_lowpassed`` is the observation LPF(clean)."""
+        lpf = degr.bwe_lowpass(filter_type, order, fc, fs)
+        proj = degr.spectral_projector(y_lowpassed, lpf)
+        return self._sample(y_lowpassed.shape, self._generic_cfg(), y=y_lowpassed,
+                            degradation=lpf, proj=proj, proj_end=proj, generator=generator,
+                            prior=prior, churn=churn)
+
+    def predict_declipping(self, y_clipped: torch.Tensor, clip_value,
+                           generator: Optional[torch.Generator] = None, prior=None,
+                           churn=None):
+        """Declipping: guidance through the hard clip, no projection."""
+        cv = torch.as_tensor(clip_value, dtype=torch.float32, device=y_clipped.device)
+        return self._sample(y_clipped.shape, self._generic_cfg(), y=y_clipped,
+                            degradation=degr.hard_clip(cv), generator=generator,
+                            prior=prior, churn=churn)
+
+    def predict_phase_retrieval(self, y_mag: torch.Tensor, shape,
+                                generator: Optional[torch.Generator] = None, prior=None,
+                                churn=None):
+        """Phase retrieval: guidance through |STFT(x)|, no projection."""
+        mag = degr.stft_magnitude(self.args.tester.spectrogram_inpainting.stft)
+        return self._sample(shape, self._generic_cfg(), y=y_mag, degradation=mag,
+                            generator=generator, prior=prior, churn=churn)
+
+    def predict_compsens(self, y_subsampled: torch.Tensor, mask: torch.Tensor,
+                         generator: Optional[torch.Generator] = None, prior=None,
+                         churn=None):
+        """Compressive sensing: guidance through the random sample mask, with
+        data consistency off (the reference asserts it off)."""
+        cfg = dataclasses.replace(self._generic_cfg(), data_consistency=False,
+                                  data_consistency_end=False)
+        return self._sample(y_subsampled.shape, cfg, y=y_subsampled,
+                            degradation=degr.time_mask(mask), generator=generator,
+                            prior=prior, churn=churn)
+
+    def predict_autoregressive(self, num_segments: int, overlap: float = 0.25,
+                               shape=None, generator: Optional[torch.Generator] = None,
+                               priors: Optional[Sequence[torch.Tensor]] = None,
+                               churns: Optional[Sequence[torch.Tensor]] = None
+                               ) -> torch.Tensor:
+        """Outpainting by chained windows: segment 0 is unconditional; each
+        next segment is inpainting conditioned on the trailing ``overlap``
+        of the previous one, projected with the un-smoothed mask. Returns
+        [B, L + (num_segments - 1)(L - n_ov)]; ``priors``/``churns`` give
+        one noise draw per segment."""
+        if shape is None:
+            shape = (1, int(self.args.exp.audio_len))
+        B, L = shape
+        n_ov = int(L * overlap)
+        dev = self.device
+        mask = torch.zeros((B, L), device=dev)
+        mask[:, :n_ov] = 1.0
+
+        def noise(i):
+            return (None if priors is None else priors[i],
+                    None if churns is None else churns[i])
+
+        prior, churn = noise(0)
+        seg = self.predict_unconditional(shape, generator, prior=prior, churn=churn)
+        if self.rid:
+            seg = seg[0]
+        out = [seg]
+        for i in range(1, num_segments):
+            y = torch.zeros((B, L), device=dev)
+            y[:, :n_ov] = seg[:, -n_ov:]
+            y = y * mask
+            proj = degr.inpainting_projector(y, mask)
+            prior, churn = noise(i)
+            seg = self._sample(shape, self.cfg, y=y, degradation=degr.time_mask(mask),
+                               proj=proj, proj_end=proj, generator=generator, prior=prior,
+                               churn=churn)
+            if self.rid:
+                seg = seg[0]
+            out.append(seg[:, n_ov:])
+        return torch.cat(out, dim=1)

@@ -13,8 +13,8 @@ of ``aid_tpu/serving.py``).
   * reconstructions are written back only inside the gaps.
 
 Input must be at the model's sample rate; resampling (``audio_io``),
-``shard``, ``precompile``, ``autotune_max_batch``, ``inpaint_file`` and
-checkpoint loading wait for later slices.
+``shard``, ``precompile``, ``autotune_max_batch`` and ``inpaint_file`` wait
+for later slices.
 """
 from __future__ import annotations
 
@@ -55,16 +55,27 @@ class InpaintingService:
 
     @classmethod
     def from_config(cls, overrides: Sequence[str] = (), device=None,
-                    max_batch: Optional[int] = None, seed: int = 0) -> "InpaintingService":
-        """Compose the config, build the network (seeded random weights) on
-        ``device`` (CUDA unless named), the EDM parameters and the sampler."""
+                    max_batch: Optional[int] = None, seed: int = 0,
+                    checkpoint: Optional[str] = None) -> "InpaintingService":
+        """Compose the config, build the network on ``device`` (CUDA unless
+        named), the EDM parameters and the sampler. Weights: the EMA of
+        ``checkpoint`` (as ``Tester.load_checkpoint`` reads it: a reference
+        ``.pt``, the port's own or a JAX stream ``.ckpt``), else seeded
+        random ones."""
         from aid_tpu_torch.utils.config import compose
         args = compose(overrides=list(overrides))
         if max_batch is None:
             max_batch = int(args.network.get("serving_max_batch", 2))
         network = tsetup.setup_network(args, device=device, seed=seed)
         diff = tsetup.setup_diff_parameters(args)
-        sampler = tsetup.setup_sampler(args, network=network, diff_params=diff)
+        if checkpoint:
+            from aid_tpu_torch.testing.tester import Tester
+            tester = Tester(args, network=network, diff_params=diff, device=device)
+            if not tester.load_checkpoint(checkpoint):
+                raise FileNotFoundError(checkpoint)
+            sampler = tester.sampler
+        else:
+            sampler = tsetup.setup_sampler(args, network=network, diff_params=diff)
         return cls(args=args, network=network, sampler=sampler, max_batch=max_batch)
 
     @property

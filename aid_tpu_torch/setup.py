@@ -61,11 +61,16 @@ def setup_diff_parameters(args) -> Any:
     return call_func_by_name(args, func_name=args.diff_params.callable)
 
 
-def setup_tester(args, network=None, diff_params=None, test_set=None,
-                 in_training=False) -> Any:
-    """Testers (and with them the trainer's demo samples) are not ported."""
-    raise NotImplementedError(
-        "testers are not ported to aid_tpu_torch yet (ROADMAP queue 1, testers)")
+def setup_tester(args, network=None, diff_params=None, test_set=None, device=None,
+                 in_training=False) -> Optional[Any]:
+    """Tester (``tester.callable``) on ``device`` (CUDA unless named);
+    None when ``tester.do_test`` is off, unless it is for training's demos."""
+    dev = resolve_device(device)
+    if not bool(args.tester.get("do_test", True)) and not in_training:
+        return None
+    return call_func_by_name(args=args, network=network, diff_params=diff_params,
+                             test_set=test_set, in_training=in_training, device=dev,
+                             func_name=args.tester.callable)
 
 
 def setup_trainer(args, dset=None, network=None, diff_params=None, tester=None) -> Any:
@@ -74,7 +79,8 @@ def setup_trainer(args, dset=None, network=None, diff_params=None, tester=None) 
                              func_name=args.exp.trainer_callable)
 
 
-def setup_sampler(args, network, diff_params) -> Any:
-    """Sampler facade (``tester.sampler_callable``)."""
-    return call_func_by_name(network, diff_params, args,
+def setup_sampler(args, network, diff_params, rid: bool = False) -> Any:
+    """Sampler facade (``tester.sampler_callable``); ``rid`` records every
+    trajectory."""
+    return call_func_by_name(network, diff_params, args, rid=rid,
                              func_name=args.tester.sampler_callable)

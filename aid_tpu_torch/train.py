@@ -53,12 +53,8 @@ def main(overrides: Optional[Sequence[str]] = None, device=None) -> int:
     network = tsetup.setup_network(args, device=dev, seed=int(args.exp.get("seed", 42)),
                                    trainable=True)
     dset = tsetup.setup_dataset(args)
-    try:
-        tester = tsetup.setup_tester(args, network=network, diff_params=diff_params,
-                                     in_training=True)
-    except NotImplementedError as e:
-        print(f"[train] demos disabled: {e}", flush=True)
-        tester = None
+    tester = tsetup.setup_tester(args, network=network, diff_params=diff_params, device=dev,
+                                 in_training=True)
     trainer = tsetup.setup_trainer(args, dset=dset, network=network,
                                    diff_params=diff_params, tester=tester)
     final_it = trainer.training_loop()

@@ -7,8 +7,8 @@ from the trainer's ``torch.Generator``), gradients summed over
 ``num_accumulation_rounds`` micro-batches, the pre-clip global norm, the
 global-norm clip, Adam, the LR ramp, the skip guardrails, the EMA of the
 parameters and the loss statistics. The loop around it logs, checkpoints,
-resumes, profiles and guards against stalls and host-memory growth, as the
-JAX trainer does.
+resumes, samples demos with the EMA weights through the tester, profiles
+and guards against stalls and host-memory growth, as the JAX trainer does.
 
 The optimizer is written as tensor ops (``torch._foreach_*``) and not as
 ``torch.optim.Adam``, because the JAX step's semantics need it:
@@ -28,6 +28,7 @@ from __future__ import annotations
 import os
 import sys
 import time
+import traceback
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -50,10 +51,8 @@ class Trainer:
         self.args = args
         self.exp = exp = args.exp
         self.dset = dset
-        if tester is not None:
-            raise NotImplementedError(
-                "in-training demos need a tester, which is not ported yet "
-                "(ROADMAP queue 1, testers)")
+        self.tester = tester
+        self._demo_failures = 0
         quant = str(args.network.get("quant", "none"))
         if quant != "none":
             raise ValueError(f"network.quant={quant} is a serving-only path; train with "
@@ -96,6 +95,7 @@ class Trainer:
         logging = args.logging
         self.log_interval = int(logging.get("log_interval", 1000))
         self.save_interval = int(logging.get("save_interval", 10000))
+        self.heavy_log_interval = int(logging.get("heavy_log_interval", 10000))
         self.save_model = bool(logging.get("save_model", True))
         self.remove_last = bool(logging.get("remove_last_checkpoint", False))
         self.num_sigma_bins = int(logging.get("num_sigma_bins", 20))
@@ -364,6 +364,29 @@ class Trainer:
         self.collector.flush()
         return out
 
+    def heavy_logging(self) -> None:
+        """Demo samples with the EMA weights through the tester:
+        ``model_dir/heavy_logging/it_N/uncond_i.wav`` and a spectrogram
+        ``.png`` beside each. A failing demo is skipped with its traceback
+        (demos must not stop training); after two failures in a row the
+        demos stay off for this process."""
+        if self.tester is None or self._demo_failures >= 2:
+            return
+        try:
+            x = self.tester.sample_unconditional_ema(dict(zip(self.names, self.ema)))
+            d = os.path.join(self.model_dir, "heavy_logging", f"it_{self.it}")
+            for i, xi in enumerate(x):
+                fp = logu.write_audio_file(xi, self.target_fs, f"uncond_{i}", d)
+                logu.plot_spectrogram_from_raw_audio(xi, self.target_fs, fp + ".png")
+            self._demo_failures = 0
+        except Exception:  # the boundary: a demo must never stop training
+            print(f"[heavy_logging] demo at iteration {self.it} skipped:", flush=True)
+            traceback.print_exc()
+            self._demo_failures += 1
+            if self._demo_failures >= 2:
+                print("[heavy_logging] 2 consecutive failures: demos off for the rest of "
+                      "this process", flush=True)
+
     # ------------------------------------------------------------------ loop
 
     @staticmethod
@@ -497,6 +520,9 @@ class Trainer:
             if saved:
                 self.save_checkpoint()
                 self._trim_host_heap()
+            if it % self.heavy_log_interval == 0:
+                self.heavy_logging()
+            if saved:   # after the demo: a recycle at a shared interval must not eat it
                 self._maybe_recycle_process(it)
             if beat is not None:
                 beat[0] = time.time()

@@ -22,7 +22,7 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -70,13 +70,15 @@ def load(path: str) -> Dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def list_checkpoints(model_dir: str, exp_name: str) -> List[str]:
-    """Checkpoints of ``exp_name`` under ``model_dir``, oldest first: the
-    port's ``.pt`` files and the JAX package's ``.ckpt`` stream directories
-    (at the same iteration the port's comes last)."""
-    pat = re.compile(re.escape(exp_name) + r"-(\d+)\.(pt|ckpt)$")
+def list_checkpoints(model_dir: str, exp_name: Optional[str] = None) -> List[str]:
+    """Checkpoints of ``exp_name`` (of any name without it) under
+    ``model_dir``, oldest first: ``{name}-{it}.pt`` files and the JAX
+    package's ``{name}-{it}.ckpt`` stream directories (at the same iteration
+    the ``.pt`` comes last)."""
+    prefix = re.escape(exp_name) if exp_name is not None else ".+"
+    pat = re.compile(prefix + r"-(\d+)\.(pt|ckpt)$")
     found = []
-    for p in glob.glob(os.path.join(os.path.abspath(model_dir), f"{exp_name}-*")):
+    for p in glob.glob(os.path.join(os.path.abspath(model_dir), f"{exp_name or '*'}-*")):
         m = pat.search(os.path.basename(p))
         if m and (m.group(2) == "pt" or ckpt_io.is_stream(p)):
             found.append((int(m.group(1)), m.group(2) == "pt", p))

@@ -42,7 +42,26 @@ Phases (any failure exits non-zero before the last line is printed):
           corpus (remat on, TF32 as the training default), checkpoints at 2
           and 4; a second main resumes from the step-2 checkpoint and
           reaches step 4; step time, peak memory and launches per step;
-  7. the ``kernels`` JSON line, then the device JSON line.
+  8. evaluation (the third main path) at full flagship width, bf16, on the
+     same corpus with a test-split row at 44.1 kHz (resampled to 22.05 kHz
+     by the tester):
+       a. ``aid_tpu_torch.test.main`` runs the inpainting mode at T=35 on one
+          file with phase 6e's checkpoint, found by the latest-checkpoint
+          scan: seconds and real-time factor;
+       b. a second main runs the other nine modes at T=6 (one unconditional
+          sample, two autoregressive segments, random short gaps, the four
+          MUSHRA gaps): seconds per mode;
+       c. the in-training demo: ``aid_tpu_torch.train.main`` for one step
+          with ``heavy_log_interval`` 1 writes heavy_logging/it_1/uncond_0.wav;
+          every wav of a-c finite, every metrics.json with finite LSD and
+          SNR, the inpainting output equal to the original (within one 16-bit
+          step) farther than ``hann_size`` from the gap, and the kernel's
+          launches over a-c equal to 90 per denoiser call plus 180 per
+          training step;
+       d. a reference-layout ``.pt`` written from a seeded network loads back
+          exactly, and ``test_inpainting`` with the plain version patched in
+          agrees with the kernel run within phase 3's bf16 tolerance;
+  9. the ``kernels`` JSON line, then the device JSON line.
 
 f32 comparisons run with TF32 off (torch.backends.cuda.matmul.allow_tf32
 and torch.backends.cudnn.allow_tf32 both False).
@@ -366,17 +385,22 @@ TRAIN_BATCH = 4
 CORPUS_RATES = (44100, 48000, 44100, 48000)   # CSV order; one file each
 
 
-def write_corpus(np, root, load_len):
-    """MAESTRO v3 layout: maestro-v3.0.0.csv (split, year, audio_filename)
-    and 16-bit WAVs of music() a little longer than load_len."""
+def write_corpus(np, root, load_len, test_len):
+    """MAESTRO v3 layout: maestro-v3.0.0.csv (split, year, audio_filename),
+    16-bit WAVs of music() a little longer than load_len for training, and
+    one test-split file of 2009 at 44.1 kHz, a little longer than test_len."""
     from aid_tpu_torch.data import audio_io
-    os.makedirs(os.path.join(root, "2015"), exist_ok=True)
+    for year in ("2015", "2009"):
+        os.makedirs(os.path.join(root, year), exist_ok=True)
     rows = ["split,year,audio_filename"]
     for j, fs in enumerate(CORPUS_RATES):
         rel = f"2015/piece_{j}.wav"
         audio_io.write(os.path.join(root, rel), music(np, load_len + 15000 + 1000 * j, fs, 20 + j),
                        fs)
         rows.append(f"train,2015,{rel}")
+    audio_io.write(os.path.join(root, "2009/test_piece.wav"), music(np, test_len + 4410, 44100, 30),
+                   44100)
+    rows.append("test,2009,2009/test_piece.wav")
     with open(os.path.join(root, "maestro-v3.0.0.csv"), "w") as f:
         f.write("\n".join(rows) + "\n")
 
@@ -695,26 +719,25 @@ def phase_train_entry(torch, fa, np, corpus, work, card):
     return rec
 
 
-def phase_training(torch, fa, np, here, card, shapes):
+def phase_training(torch, fa, np, work, card, shapes):
+    """Phase 6 in ``work``; the corpus and phase 6e's checkpoints stay there
+    for phase 8."""
     from aid_tpu_torch.utils.config import compose
     log("== phase 6: training at full flagship width, batch 4, f32")
-    work = os.path.join(here, "experiments", "chip_smoke_training")
-    shutil.rmtree(work, ignore_errors=True)
     corpus = os.path.join(work, "maestro")
-    try:
-        write_corpus(np, corpus, int(compose().dset.load_len))
-        worst = phase_train_kernel(torch, fa)
-        log(f"== phase 6a, timing: kernel at every launch shape at batch {TRAIN_BATCH}, f32, "
-            "tanh, over one training forward")
-        timing = time_kernel(torch, fa, shapes, "tanh", torch.float32, [TRAIN_BATCH],
-                             time_batch=TRAIN_BATCH)
-        log(json.dumps({"timing": "fused_adaln_fwd per training forward (f32, batch 4)",
-                        **timing, "card": card}))
-        worst = max(worst, timing["max_abs_err"])
-        steps = phase_train_steps(torch, fa, np, corpus, work, card)
-        entry = phase_train_entry(torch, fa, np, corpus, work, card)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    args = compose()
+    write_corpus(np, corpus, int(args.dset.load_len),
+                 int(args.exp.audio_len * args.exp.resample_factor))
+    worst = phase_train_kernel(torch, fa)
+    log(f"== phase 6a, timing: kernel at every launch shape at batch {TRAIN_BATCH}, f32, "
+        "tanh, over one training forward")
+    timing = time_kernel(torch, fa, shapes, "tanh", torch.float32, [TRAIN_BATCH],
+                         time_batch=TRAIN_BATCH)
+    log(json.dumps({"timing": "fused_adaln_fwd per training forward (f32, batch 4)",
+                    **timing, "card": card}))
+    worst = max(worst, timing["max_abs_err"])
+    steps = phase_train_steps(torch, fa, np, corpus, work, card)
+    entry = phase_train_entry(torch, fa, np, corpus, work, card)
     log(json.dumps({"training": {"kernel_ms_per_forward": timing["ms"],
                                  "kernel_bound_ms_per_forward": timing["bound_ms"],
                                  "step_s_entry_tf32": entry["step_s_median_after_first"],
@@ -727,6 +750,228 @@ def phase_training(torch, fa, np, here, card, shapes):
                                  "launches_per_forward": steps["launches_per_forward"],
                                  "card": card}}))
     return entry["launches"], worst
+
+
+# -------------------------------------------------------------- evaluation
+
+EVAL_T = 6     # steps of the nine other modes; the inpainting mode runs the configured T=35
+OTHER_MODES = ["unconditional", "inpainting_mushra", "inpainting_shortgaps",
+               "spectrogram_inpainting", "bwe", "declipping", "comp_sens", "phase_retrieval",
+               "autoregressive"]
+LSB = 1.0 / 32767          # one step of a 16-bit wav
+BF16_TOL = 2e-2            # phase 3's bf16 tolerance, max|d| / max|ref|
+
+
+def eval_overrides(corpus, model_dir, *extra):
+    return [f"dset.path={corpus}", "dset.test.num_samples=1", f"model_dir={model_dir}", *extra]
+
+
+@contextlib.contextmanager
+def counting_denoiser():
+    """Counts ``edm.denoiser`` calls: the samplers look it up at call time."""
+    from aid_tpu_torch.diffusion import edm
+    orig, calls = edm.denoiser, [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return orig(*a, **k)
+
+    edm.denoiser = counted
+    try:
+        yield calls
+    finally:
+        edm.denoiser = orig
+
+
+def run_test_main(overrides):
+    """``aid_tpu_torch.test.main(overrides)``; returns the Tester it ran."""
+    from aid_tpu_torch import test as ttest
+    from aid_tpu_torch.testing.tester import Tester
+    seen, orig = [], Tester.dodajob
+
+    def dodajob(self):
+        seen.append(self)
+        return orig(self)
+
+    Tester.dodajob = dodajob
+    try:
+        if ttest.main(overrides) != 0:
+            fail("aid_tpu_torch.test.main returned non-zero")
+    finally:
+        Tester.dodajob = orig
+    return seen[0]
+
+
+@contextlib.contextmanager
+def checked_writes(np):
+    """Every wav the tester and the trainer write goes through
+    ``logging_utils.write_audio_file`` (looked up at call time): each
+    signal is checked finite before it is quantised to 16 bits, where a NaN
+    would no longer show. Yields the list of written paths."""
+    from aid_tpu_torch.utils import logging_utils as logu
+    orig, written = logu.write_audio_file, []
+
+    def write(x, fs, name, path=".", **k):
+        if not np.isfinite(np.asarray(x)).all():
+            fail(f"non-finite audio written as {os.path.join(path, name)}")
+        written.append(orig(x, fs, name, path, **k))
+        return written[-1]
+
+    logu.write_audio_file = write
+    try:
+        yield written
+    finally:
+        logu.write_audio_file = orig
+
+
+def check_metrics(root):
+    """Every metrics.json under ``root`` with finite mean LSD and SNR;
+    returns their number."""
+    scored = 0
+    for d, _, files in os.walk(root):
+        if "metrics.json" in files:
+            with open(os.path.join(d, "metrics.json")) as fh:
+                mean = json.load(fh)["__mean__"]
+            if not (math.isfinite(mean["lsd"]) and math.isfinite(mean["snr"])):
+                fail(f"{d}/metrics.json: {mean}")
+            scored += 1
+    return scored
+
+
+def phase_testing(torch, fa, np, work, card):
+    """8a-8c on the main path (launches counted), then 8d."""
+    from aid_tpu_torch import train as ttrain
+    from aid_tpu_torch.data import audio_io
+    from aid_tpu_torch.utils import checkpoint as ckpt
+    corpus, md = os.path.join(work, "maestro"), os.path.join(work, "main")
+    latest = ckpt.list_checkpoints(md, "22k_8s")[-1]
+    ema = ckpt.load(latest)["ema"]
+    log(f"== phase 8a: aid_tpu_torch.test.main, inpainting at T=35 on one test file, weights "
+        f"from the latest checkpoint in {md}")
+    torch.cuda.synchronize()
+    fa.reset_launch_count()                      # the evaluation main path starts here
+    with counting_denoiser() as calls, checked_writes(np) as written:
+        t0 = time.time()
+        ta = run_test_main(eval_overrides(corpus, md, "tester.modes=['inpainting']"))
+        wall_a, calls_a = time.time() - t0, calls[0]
+        log(f"== phase 8b: aid_tpu_torch.test.main, the other nine modes at T={EVAL_T}")
+        t0 = time.time()
+        tb = run_test_main(eval_overrides(
+            corpus, md, f"tester.T={EVAL_T}", f"tester.modes={OTHER_MODES}".replace(" ", ""),
+            "tester.unconditional.num_samples=1", "tester.autoregressive.num_samples=2"))
+        wall_b, calls_b = time.time() - t0, calls[0] - calls_a
+        log("== phase 8c: aid_tpu_torch.train.main, one step with heavy_log_interval 1 (the "
+            "in-training demo)")
+        demo_md = os.path.join(work, "demo")
+        t0 = time.time()
+        if ttrain.main(train_overrides(corpus, demo_md, "exp.total_its=1",
+                                       "logging.heavy_log_interval=1", f"tester.T={EVAL_T}",
+                                       "tester.unconditional.num_samples=1")) != 0:
+            fail("the demo's train.main returned non-zero")
+        wall_c, calls_c = time.time() - t0, calls[0] - calls_a - calls_b
+    torch.cuda.synchronize()
+    launches = fa.launch_count()                 # ... and ends here
+
+    loaded = all(torch.equal(p, ema[n].to(p.dtype).to(p.device))
+                 for n, p in ta.network.named_parameters())
+    # trajectories of 8b: unconditional 1, MUSHRA 4, short gaps, spectrogram,
+    # bwe, declipping, comp_sens, phase retrieval 1 each, autoregressive 2
+    trajectories_b = 1 + 4 + 6 + 2
+    expect_calls = {"a": 2 * 35 - 1, "b": (2 * EVAL_T - 1) * trajectories_b,
+                    "c": 2 * EVAL_T - 1}
+    got_calls = {"a": calls_a, "b": calls_b, "c": calls_c}
+    per_fwd = launches_per_forward(ta.network)                  # 90 on the flagship
+    expected_launches = per_fwd * (sum(got_calls.values()) + 2)  # + one remat training step
+    base = ta.base_dir
+    scored = check_metrics(base)
+    demo_wav = os.path.join(demo_md, "heavy_logging", "it_1", "uncond_0.wav")
+    if demo_wav not in written:
+        fail(f"the in-training demo wrote no {demo_wav}")
+    demo = audio_io.read(demo_wav)[0]
+    orig = audio_io.read(os.path.join(base, "inpainting", "original", "test_piece.wav"))[0]
+    rec = audio_io.read(os.path.join(base, "inpainting", "reconstructed", "test_piece.wav"))[0]
+    gap = np.flatnonzero(ta.prepare_mask()[0] == 0)
+    hann = ta.sampler.hann_size
+    far = np.ones(len(orig), bool)
+    far[max(gap[0] - hann, 0):gap[-1] + 1 + hann] = False
+    far_err = float(np.abs(rec[far] - orig[far]).max())
+    audio_s = ta.audio_len / ta.fs
+    rec_a = {"check": "testing", "loaded_latest_checkpoint": os.path.basename(latest),
+             "weights_equal_checkpoint_ema": loaded, "inpainting_T35_s": ta.seconds["inpainting"],
+             "inpainting_rtf": audio_s / ta.seconds["inpainting"], "main_a_wall_s": wall_a,
+             "seconds_per_mode_T6": tb.seconds, "main_b_wall_s": wall_b, "demo_main_wall_s": wall_c,
+             "denoiser_calls": got_calls, "expected_calls": expect_calls, "launches": launches,
+             "launches_per_denoiser_call": per_fwd, "expected_launches": expected_launches,
+             "wavs_written_finite": len(written),
+             "metrics_files": scored, "observed_max_abs_err": far_err, "observed_tol": LSB,
+             "gap_rms": float(np.sqrt(np.mean(rec[gap] ** 2))),
+             "demo_rms": float(np.sqrt(np.mean(demo ** 2))), "card": card}
+    log(json.dumps(rec_a))
+    ok = (loaded and got_calls == expect_calls and launches == expected_launches
+          and set(tb.seconds) == set(OTHER_MODES) and scored == 6 and far_err <= LSB
+          and rec_a["gap_rms"] > 0 and rec_a["demo_rms"] > 0)
+    if not ok:
+        fail(f"evaluation path: {rec_a}")
+    del ta, tb
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = phase_testing_plain(torch, fa, np, corpus, work)
+    return launches, {k: rec_a[k] for k in ("inpainting_T35_s", "inpainting_rtf",
+                                            "seconds_per_mode_T6")} | plain
+
+
+def phase_testing_plain(torch, fa, np, corpus, work):
+    """8d: a reference-layout .pt from a seeded network loads back exactly;
+    test_inpainting (T=6, trained-like gates) with the kernel and with the
+    plain version on the same noise."""
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
+    from aid_tpu_torch.utils.config import compose
+    log("== phase 8d: a reference-layout .pt round trip; test_inpainting, kernel vs plain")
+    d = os.path.join(work, "plain")
+    os.makedirs(d, exist_ok=True)
+    args = compose(overrides=eval_overrides(corpus, d, f"tester.T={EVAL_T}"))
+    net = tsetup.setup_network(args, device="cuda", seed=0)
+    net.init_weights(0, gate_scale=MAIN_SCALE)             # trained-like gates
+    sd = {k: v.float().cpu() for k, v in net.state_dict().items()}
+    path = os.path.join(d, "ref-1.pt")
+    torch.save({"it": 1, "network": sd, "ema": sd, "optimizer": {}}, path)
+    del sd
+    diff = tsetup.setup_diff_parameters(args)
+    tester = tsetup.setup_tester(args, network=tsetup.setup_network(args, device="cuda", seed=1),
+                                 diff_params=diff, test_set=tsetup.setup_dataset_test(args))
+    if not tester.load_checkpoint(path):
+        fail("the reference-layout .pt did not load")
+    own = net.state_dict()
+    exact = all(torch.equal(v, own[k]) for k, v in tester.network.state_dict().items())
+    del net, own
+    out = {}
+    for plain in (False, True):
+        tester.gen.manual_seed(1234)
+        saved = {}
+        save = tester._save_triplet
+
+        def spy(mode, name, original, degraded, reconstructed):
+            saved[name] = np.asarray(reconstructed)
+            save(mode, name, original, degraded, reconstructed)
+
+        tester._save_triplet = spy
+        with plain_forced(fa) if plain else contextlib.nullcontext():
+            tester.test_inpainting(mode="inpainting_plain" if plain else "inpainting_kernel")
+        tester._save_triplet = save
+        out[plain] = saved["test_piece"]
+    k, p = out[False], out[True]
+    rel = float(np.abs(k - p).max() / np.abs(p).max())
+    rec = {"check": "testing_kernel_vs_plain", "pt_round_trip_exact": exact, "T": EVAL_T,
+           "rel_err": rel, "max_abs_err": float(np.abs(k - p).max()), "tol": BF16_TOL,
+           "finite": bool(np.isfinite(k).all() and np.isfinite(p).all())}
+    log(json.dumps(rec))
+    if not (exact and rec["finite"] and rel <= BF16_TOL):
+        fail(f"evaluation, kernel vs plain or .pt round trip: {rec}")
+    del tester
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernel_vs_plain_rel_err": rel}
 
 
 def main():
@@ -768,14 +1013,22 @@ def main():
 
     launches, rtf = phase_serving(torch, fa, np, batches)
     log(json.dumps({"inpaint_rtf_request_a": rtf, "card": card}))
-    train_launches, train_err = phase_training(torch, fa, np, here, card, shapes)
-    log(json.dumps({"launches_by_path": {"serving": launches, "training": train_launches}}))
+    work = os.path.join(here, "experiments", "chip_smoke_training")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        train_launches, train_err = phase_training(torch, fa, np, work, card, shapes)
+        test_launches, testing = phase_testing(torch, fa, np, work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({"testing": {**testing, "card": card}}))
+    log(json.dumps({"launches_by_path": {"serving": launches, "training": train_launches,
+                                         "testing": test_launches}}))
 
-    log("== phase 7: kernels")
+    log("== phase 9: kernels")
     kernels = [{"name": "fused_adaln_fwd", "route": "triton",
                 "source": "aid_tpu_torch/ops/fused_adaln.py",
                 "replaces": "aid_tpu/ops/pallas/fused_adaln.py:62",
-                "launches": launches + train_launches,
+                "launches": launches + train_launches + test_launches,
                 "max_abs_err": max(worst[("bfloat16", "tanh")], timing["max_abs_err"], train_err),
                 "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                 "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],

@@ -180,3 +180,53 @@ def test_multiprocess_loader_matches_its_worker_stream(wav_tree):
             next(mp)
     finally:
         mp.close()
+
+
+def test_audio_folder_sets_match_jax(wav_tree):
+    """The MusicNet-path loaders over the tree's WAVs: the infinite train
+    iterator yields the JAX package's segments for the same seed, and the
+    test set the same (audio, fs, filename) items."""
+    from aid_tpu.data import audiofolder as jfolder
+    from aid_tpu_torch.data import audiofolder
+    ov = ["dset=musicnet", f"dset.path={wav_tree}", f"dset.test.path={wav_tree}",
+          "dset.test.num_samples=3", "exp.audio_len=3000", "exp.resample_factor=2", "exp.seed=7"]
+    pairs = zip(audiofolder.AudioFolderDataset(compose(overrides=ov)),
+                jfolder.AudioFolderDataset(jcompose(overrides=ov)))
+    for (x, fs), (xj, fsj) in itertools.islice(pairs, 6):
+        assert fs == fsj and x.shape == (6000,)
+        np.testing.assert_array_equal(x, xj)
+    got = list(audiofolder.AudioFolderDatasetTest(compose(overrides=ov)))
+    ref = list(jfolder.AudioFolderDatasetTest(jcompose(overrides=ov)))
+    assert [(fs, n) for _, fs, n in got] == [(fs, n) for _, fs, n in ref] and len(got) == 3
+    for (x, _, _), (xj, _, _) in zip(got, ref):
+        np.testing.assert_array_equal(x, xj)
+
+
+def test_masked_test_set_matches_jax(wav_tree, tmp_path):
+    """The short-gaps test set pairs each WAV with the mask of its stem, a
+    .npy or a .mat, padded with ones or cut to the segment, as the JAX
+    package's does."""
+    import scipy.io
+    from aid_tpu.data import masked as jmasked
+    from aid_tpu_torch.data import masked
+    m0 = np.ones(5000, bool)
+    m0[100:300] = False
+    np.save(str(tmp_path / "file_0.npy"), m0)
+    m1 = np.ones(9000)
+    m1[2000:2100] = 0.0
+    scipy.io.savemat(str(tmp_path / "file_1.mat"), {"mask": m1[None]})
+    ov = ["dset=inpainting_mask_dataset", f"dset.test.path={wav_tree}",
+          f"dset.test.mask_path={tmp_path}", "dset.test.num_samples=4", "exp.audio_len=3000",
+          "exp.resample_factor=2"]
+    got = list(masked.MaskedAudioDatasetTest(compose(overrides=ov)))
+    ref = list(jmasked.MaskedAudioDatasetTest(jcompose(overrides=ov)))
+    assert len(got) == len(ref) == 4
+    for g, r in zip(got, ref):
+        assert g[2:] == r[2:]
+        np.testing.assert_array_equal(g[0], r[0])
+        np.testing.assert_array_equal(g[1], r[1])
+        assert g[1].shape == (6000,) and g[1].dtype == np.float32
+    assert got[0][1][100:300].sum() == 0 and got[0][1][5000:].min() == 1.0
+    (tmp_path / "file_0.npy").unlink()
+    with pytest.raises(FileNotFoundError, match="file_0"):
+        list(masked.MaskedAudioDatasetTest(compose(overrides=ov)))

@@ -119,3 +119,26 @@ def test_inpaint_end_to_end_on_cpu():
     np.testing.assert_array_equal(out[mask > 0.5], audio[mask > 0.5])
     assert np.abs(out[mask < 0.5]).min() >= 0 and np.abs(out[mask < 0.5]).max() > 0
     np.testing.assert_array_equal(out, svc.inpaint(audio, mask, 4096, seed=3))
+
+
+def test_from_config_loads_a_checkpoint(tmp_path):
+    """from_config(checkpoint=...) loads a reference-layout .pt written by
+    the JAX package's export_checkpoint through the tester, and serves with
+    the tester's sampler; a missing file raises FileNotFoundError."""
+    import jax
+    from aid_tpu import setup as asetup
+    from aid_tpu.utils.checkpoint_torch import export_checkpoint
+    from aid_tpu.utils.config import compose as jax_compose
+    from aid_tpu_torch.utils.convert import state_dict_from_flax
+    bundle = asetup.setup_network(jax_compose(overrides=TINY))
+    bundle.init(jax.random.PRNGKey(1), 1, 2048)
+    path = export_checkpoint(str(tmp_path / "net-5.pt"), bundle, it=5)
+    svc = InpaintingService.from_config(TINY, device="cpu", checkpoint=path)
+    ref = state_dict_from_flax(bundle.params)
+    got = svc.network.state_dict()
+    assert set(got) == set(ref)
+    for k, v in got.items():
+        assert torch.equal(v, ref[k]), k
+    assert svc.sampler.model is svc.network
+    with pytest.raises(FileNotFoundError):
+        InpaintingService.from_config(TINY, device="cpu", checkpoint=str(tmp_path / "none.pt"))

@@ -315,9 +315,23 @@ def test_logging_sinks(tmp_path):
         assert w._run is None
 
 
-def test_no_tester_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsetup.setup_tester(compose())
+def test_failing_demo_is_skipped_then_turned_off(tmp_path, capsys):
+    """A demo that raises is skipped with its traceback and training goes
+    on; after two failures in a row the trainer stops asking for demos."""
+    tr = _port(str(tmp_path), TINY)
+    calls = []
+
+    class Failing:
+        def sample_unconditional_ema(self, ema):
+            calls.append(set(ema) == set(tr.names))
+            raise RuntimeError("demo broke")
+
+    tr.tester = Failing()
+    for _ in range(3):
+        tr.heavy_logging()
+    assert calls == [True, True]
+    out = capsys.readouterr()
+    assert "demos off" in out.out and "demo broke" in out.err
 
 
 @pytest.fixture(scope="module")
@@ -350,6 +364,24 @@ def test_train_entry_runs_on_generated_wavs(wav_corpus, tmp_path, capsys):
     assert saved["it"] == 2 and saved["optimizer"]["count"] == 2
     assert all(torch.isfinite(v).all() for v in saved["network"].values())
     assert os.path.exists(os.path.join(md, "profile", "trace_it2.json"))
+
+
+def test_train_entry_writes_the_demo(wav_corpus, tmp_path):
+    """heavy_log_interval=2: after step 2 the entry's tester samples with
+    the EMA weights into model_dir/heavy_logging/it_2/."""
+    md = tmp_path / "run"
+    ov = [o for o in TINY if not o.startswith("exp.total_its")]
+    assert ttrain.main(ov + [f"dset.path={wav_corpus}", "dset.load_len=4500",
+                             "dset.years=[2015]", "exp.total_its=2",
+                             "logging.heavy_log_interval=2", "tester.T=2",
+                             "tester.unconditional.num_samples=1",
+                             "tester.unconditional.audio_len=2048", f"model_dir={md}"],
+                       device="cpu") == 0
+    demo = md / "heavy_logging" / "it_2"
+    x, fs = audio_io.read(str(demo / "uncond_0.wav"))
+    assert x.shape == (2048,) and fs == 22050 and np.isfinite(x).all() and np.abs(x).max() > 0
+    assert sorted(os.listdir(demo)) in (["uncond_0.wav"], ["uncond_0.wav", "uncond_0.wav.png"])
+    assert not (md / "heavy_logging" / "it_1").exists()
 
 
 def test_train_entry_defaults_and_dry_run(capsys):
