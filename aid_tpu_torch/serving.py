@@ -10,11 +10,17 @@ of ``aid_tpu/serving.py``).
     pass per chain with pending single-window jobs;
   * every window's observation mask is sliced from a live mask (unknown
     samples flip to known only after write-back);
-  * reconstructions are written back only inside the gaps.
+  * reconstructions are written back only inside the gaps;
+  * input at another sample rate is resampled to the model's rate and the
+    result back (``data.audio_io.resample_host``: libsoxr where the native
+    library has it), the gap mask mapped sample by sample; every observed
+    input sample comes back exactly;
+  * ``inpaint_file`` reads a file, restores it and writes it at its rate;
+  * ``precompile`` warms what a first request would otherwise pay for, and
+    ``autotune_max_batch`` fits ``max_batch`` to the card's memory.
 
-Input must be at the model's sample rate; resampling (``audio_io``),
-``shard``, ``precompile``, ``autotune_max_batch`` and ``inpaint_file`` wait
-for later slices.
+Serving over several devices (the JAX package's ``shard``) waits for the
+port's parallelism slice (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -25,6 +31,9 @@ import numpy as np
 import torch
 
 from aid_tpu_torch import setup as tsetup
+from aid_tpu_torch.data import audio_io
+from aid_tpu_torch.sampling import degradations as degr
+from aid_tpu_torch.sampling.heun import make_score_fn
 
 
 @dataclasses.dataclass
@@ -91,9 +100,79 @@ class InpaintingService:
         rec = self.sampler.predict_inpainting(y, m, generator=gen)
         return rec.float().cpu().numpy()
 
+    def _guided_score_once(self, n: int, seed: int = 0) -> None:
+        """One guided score (denoiser forward and input gradient) at
+        [n, audio_len] on a fixed mask (its second quarter missing), at the
+        largest sigma; x is drawn from a generator of its own, seeded with
+        ``seed``. Synchronised; the result is discarded."""
+        L = int(self.args.exp.audio_len)
+        dev, s = self.device, self.sampler
+        mask = torch.ones(n, L, device=dev)
+        mask[:, L // 4:L // 2] = 0.0
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        y = 0.1 * torch.randn(n, L, generator=gen, device=dev) * mask
+        score = make_score_fn(s.p, s.cfg, s._denoise, y=y, degradation=degr.time_mask(mask),
+                              proj=degr.inpainting_projector(y, mask), hpf=s._hpf())
+        t = torch.tensor(float(s.p.sigma_max), device=dev)
+        score(float(s.p.sigma_max) * torch.randn(n, L, generator=gen, device=dev), t)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def precompile(self, seed: int = 0) -> None:
+        """Warm what the first request would otherwise pay for: one guided
+        score at [max_batch, audio_len] builds the Triton kernel's variants,
+        puts the CQT tables on the device and lets cuDNN pick its
+        algorithms. Eager PyTorch has no whole-program compile (the JAX
+        package compiles its guided-Heun program here). Draws nothing from
+        any request's noise."""
+        self._guided_score_once(self.max_batch, seed)
+
+    def _footprint(self, n: int) -> int:
+        """Device bytes of a guided score at [n, audio_len]: the network's
+        weights plus the peak that one score adds to what was allocated
+        before it (``torch.cuda.max_memory_allocated`` after
+        ``reset_peak_memory_stats``). A first, unmeasured score leaves what
+        stays allocated once (CQT tables on the device) out of the peak."""
+        dev = self.device
+        if dev.type != "cuda":
+            raise RuntimeError(f"autotune_max_batch measures CUDA memory; the network is on {dev}")
+        self._guided_score_once(n)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        self._guided_score_once(n)
+        weights = sum(p.numel() * p.element_size() for p in self.network.parameters())
+        return weights + torch.cuda.max_memory_allocated(dev) - base
+
+    def autotune_max_batch(self, limit_bytes: Optional[int] = None,
+                           margin: float = 0.85, cap: int = 16) -> int:
+        """Fit ``max_batch`` to device memory from the footprints of one
+        guided score at batch 1 and 2: the per-row bytes are their
+        difference, the rest is fixed. Returns the largest batch whose
+        footprint stays under ``margin * limit_bytes`` (at most ``cap``) and
+        caps ``max_batch`` with it; it never raises a configured
+        ``max_batch`` (fitting memory is necessary, the throughput optimum
+        may be lower). ``limit_bytes`` defaults to the card's memory.
+        Raises when not even one row fits."""
+        if limit_bytes is None:
+            if self.device.type != "cuda":
+                raise ValueError(f"no device memory limit on {self.device}; pass limit_bytes")
+            limit_bytes = torch.cuda.get_device_properties(self.device).total_memory
+        f1, f2 = self._footprint(1), self._footprint(2)
+        per_row = max(f2 - f1, 1)
+        fixed = max(f1 - per_row, 0)
+        budget = margin * limit_bytes
+        fit = int((budget - fixed) // per_row)
+        if fit < 1:
+            raise RuntimeError(
+                f"guided sampling does not fit: fixed {fixed / 2 ** 30:.2f} GiB"
+                f" + {per_row / 2 ** 30:.2f} GiB/row vs budget {budget / 2 ** 30:.2f} GiB")
+        self.max_batch = max(1, min(self.max_batch, min(fit, cap)))
+        return min(fit, cap)
+
     def inpaint(self, audio: np.ndarray, mask: np.ndarray, fs: int,
                 seed: int = 0) -> np.ndarray:
-        """Restore the masked samples of an arbitrary-length mono signal."""
+        """Restore the masked samples of an arbitrary-length mono signal at
+        sample rate ``fs``."""
         model_fs = int(self.args.exp.sample_rate)
         L = int(self.args.exp.audio_len)
         audio = np.asarray(audio, np.float32).reshape(-1)
@@ -101,12 +180,15 @@ class InpaintingService:
         if audio.shape != mask.shape:
             raise ValueError("audio and mask must have the same length")
         if fs != model_fs:
-            raise NotImplementedError(
-                f"input at {fs} Hz: resampling to the model's {model_fs} Hz "
-                "is not ported yet")
+            # each model-rate sample takes the mask of the input sample it
+            # falls on
+            audio_m = audio_io.resample_host(audio, fs, model_fs)
+            idx = (np.arange(len(audio_m)) / (model_fs / fs)).astype(np.int64)
+            mask_m = mask[np.clip(idx, 0, len(mask) - 1)]
+        else:
+            audio_m, mask_m = audio, mask
 
-        orig_len = len(audio)
-        audio_m, mask_m = audio, mask
+        orig_len = len(audio_m)
         if orig_len < L:  # short inputs: pad as pinned (observed) silence
             audio_m = np.pad(audio_m, (0, L - orig_len))
             mask_m = np.pad(mask_m, (0, L - orig_len), constant_values=1.0)
@@ -163,4 +245,17 @@ class InpaintingService:
                       + [ch for ch in chains[:n_chain] if id(ch) not in finished])
 
         out = out[:orig_len]
+        if fs != model_fs:
+            restored = audio_io.resample_host(out, model_fs, fs)[: len(audio)]
+            restored = np.pad(restored, (0, len(audio) - len(restored)))
+            # every observed input sample exactly as it came
+            return np.where(mask > 0.5, audio, restored).astype(np.float32)
         return np.where(mask_m[:orig_len] > 0.5, audio, out).astype(np.float32)
+
+    def inpaint_file(self, in_path: str, mask: np.ndarray, out_path: str,
+                     seed: int = 0) -> str:
+        """Read ``in_path`` (WAV or FLAC, mono-mixed), restore the samples
+        where ``mask`` is 0 and write a 16-bit WAV at the input's rate."""
+        audio, fs = audio_io.read(in_path)
+        audio_io.write(out_path, self.inpaint(audio, mask, fs, seed=seed), fs)
+        return out_path

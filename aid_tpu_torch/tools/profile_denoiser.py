@@ -1,10 +1,11 @@
 """Where the flagship denoiser's time goes on the card.
 
-    python -m aid_tpu_torch.tools.profile_denoiser [--out DIR]
+    python -m aid_tpu_torch.tools.profile_denoiser [--out DIR] [--override KEY=VALUE ...]
 
 Builds the served configuration (the 22 kHz flagship, bf16, seeded random
-weights) on the GPU and reports, each beside the card's name and power
-limit:
+weights; ``--override network=cqtdiff_plus_44k --override exp=musicnet44k_4s``
+for the 44.1 kHz one) on the GPU and reports, each beside the card's name
+and power limit:
 
   * one denoiser forward and one guided score (forward + input gradient),
     host clock around work that ends in a synchronise;
@@ -22,6 +23,7 @@ import os
 import subprocess
 import time
 from types import SimpleNamespace
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -43,13 +45,14 @@ def gpu_line() -> str:
 
 
 def flagship_case(compute_dtype: str = "bfloat16", batch: int = 1,
-                  device="cuda") -> SimpleNamespace:
-    """The served configuration at full width with seeded random weights
-    (gates at the main layers' scale, as in a trained net) and the inputs of
-    one denoiser call and one guided score: ``batch`` rows of noise-like
-    audio, each with the 1500 ms centre gap, and sigma from 0.5 (row 0) to
-    0.2 (last row). The score takes ``sigma[0]``."""
-    args = compose(overrides=[f"network.compute_dtype={compute_dtype}"])
+                  device="cuda", overrides: Sequence[str] = ()) -> SimpleNamespace:
+    """The served configuration (``overrides`` select another, e.g. the
+    44.1 kHz model) at full width with seeded random weights (gates at the
+    main layers' scale, as in a trained net) and the inputs of one denoiser
+    call and one guided score: ``batch`` rows of noise-like audio, each with
+    the 1500 ms centre gap, and sigma from 0.5 (row 0) to 0.2 (last row).
+    The score takes ``sigma[0]``."""
+    args = compose(overrides=[*overrides, f"network.compute_dtype={compute_dtype}"])
     net = setup.setup_network(args, device=device)
     net.init_weights(0, gate_scale=MAIN_SCALE)
     sampler = setup.setup_sampler(args, net, setup.setup_diff_parameters(args))
@@ -85,6 +88,8 @@ def wall_s(fn, reps: int = 3) -> float:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--override", action="append", default=[],
+                    help="a config override, e.g. network=cqtdiff_plus_44k (repeatable)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_denoiser: no CUDA device")
@@ -94,7 +99,9 @@ def main():
     gpu = gpu_line()
     print(json.dumps({"card": gpu, "torch": torch.__version__,
                       "cudnn": torch.backends.cudnn.version()}), flush=True)
-    case = flagship_case()
+    case = flagship_case(overrides=a.override)
+    print(json.dumps({"overrides": a.override, "sample_rate": int(case.args.exp.sample_rate),
+                      "audio_len": int(case.args.exp.audio_len)}), flush=True)
     t = case.sigma[0]
 
     def fwd():

@@ -3,9 +3,10 @@ package's ``utils/config.py``, reading ``aid_tpu_torch/configs``).
 
 A root config declares ``defaults: [{group: name}, ...]``; each group loads
 ``configs/<group>/<name>.yaml`` under ``args.<group>``; overrides are dotted
-paths (``exp.audio_len=2048``) or group swaps (``network=other``). Values
-are parsed with ``yaml.safe_load`` so ``1e-4``, ``[1,2]``, ``True`` and
-``None`` round-trip.
+paths (``exp.audio_len=2048``) or group swaps (``network=other``). A group
+file holding ``_alias: other`` stands for ``other`` (see ``_resolve_alias``).
+Values are parsed with ``yaml.safe_load`` so ``1e-4``, ``[1,2]``, ``True``
+and ``None`` round-trip.
 """
 from __future__ import annotations
 
@@ -89,8 +90,43 @@ def compose(config_dir: str = DEFAULT_CONFIG_DIR, config_name: str = "conf",
 
     tree: dict = dict(root)
     for group, name in group_choice.items():
-        tree[group] = _load_yaml(os.path.join(config_dir, group, name + ".yaml"))
+        loaded, name = _resolve_alias(config_dir, group, name)
+        tree[group] = loaded
         tree[group]["name"] = tree[group].get("name", name)
     for key, val in dotted:
         _set_dotted(tree, key, val)
     return EasyDict(tree)
+
+
+def _resolve_alias(config_dir: str, group: str, name: str):
+    """Load ``configs/<group>/<name>.yaml``, following ``_alias: other``
+    files (the reference's own config names, e.g.
+    ``network=paper_1912_unet_cqt_oct_attention_44k_2``) to the file they
+    name. Keys beside ``_alias`` are deep-merged over the target, the most
+    specific file winning. A cycle raises. Returns (tree, resolved name)."""
+    seen = set()
+    overlays = []
+    while True:
+        if name in seen:
+            raise ValueError(f"config alias cycle in group {group!r}: {sorted(seen)}")
+        seen.add(name)
+        loaded = _load_yaml(os.path.join(config_dir, group, name + ".yaml"))
+        target = loaded.pop("_alias", None)
+        if target is None:
+            break
+        if loaded:
+            overlays.append(loaded)
+        name = str(target)
+    for over in reversed(overlays):
+        loaded = _deep_merge(loaded, over)
+    return loaded, name
+
+
+def _deep_merge(base: dict, over: dict) -> dict:
+    out = dict(base)
+    for k, v in over.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out

@@ -148,3 +148,21 @@ def test_flagship_design_matches_jax():
     for a, b in zip(t.fwd(torch.from_numpy(x)), j.fwd(jnp.asarray(x))):
         _close(a.numpy(), b)
     _close(t.apply_hpf_DC(torch.from_numpy(x)).numpy(), j.apply_hpf_DC(jnp.asarray(x)))
+
+
+
+def test_musicnet_44k_design_matches_jax():
+    """The 44.1 kHz flagship's design (8 octaves, 64 bins, 184184 samples):
+    the same frame lengths, analysis and synthesis against the JAX
+    package's (jitted there: its eager forward takes minutes on the CPU).
+    Gradients are held on the tiny designs above."""
+    design = (8, 64, 44100.0, 184184, ("kaiser", 1.0))
+    t, j = _pair(design)
+    assert (t.Ls, t.M) == (j.Ls, j.M)
+    assert t.M == [32, 64, 128, 256, 512, 1024, 2048, 4096]
+    x = _signal(t, seed=9, batch=1)
+    got = t.fwd(torch.from_numpy(x))
+    ref = jax.jit(j.fwd)(jnp.asarray(x))
+    for a, b in zip(got, ref):
+        _close(a.numpy(), b)
+    _close(t.bwd(got).numpy(), jax.jit(j.bwd)(ref))

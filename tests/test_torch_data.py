@@ -1,7 +1,8 @@
 """The port's data layer (``aid_tpu_torch/data``) against the JAX package's:
-WAV I/O, the MAESTRO loaders and batching, on a generated MAESTRO-layout
-tree (CSV + WAVs at 44.1 and 48 kHz). For the same seed and files both
-packages yield the same segments."""
+WAV I/O, host resampling, the MAESTRO loaders and batching on a generated
+MAESTRO-layout tree (CSV + WAVs at 44.1 and 48 kHz), the LibriSpeech loaders
+on a generated FLAC corpus. For the same seed and files both packages yield
+the same segments."""
 import csv
 import itertools
 
@@ -72,20 +73,20 @@ def test_wav_roundtrip_and_segments(tmp_path):
                                atol=2.0 / 32767)
 
 
-def test_flac_raises_naming_the_roadmap(tmp_path):
-    p = str(tmp_path / "a.flac")
-    with open(p, "wb") as f:
-        f.write(b"fLaC")
-    for fn in (audio_io.info, audio_io.read):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            fn(p)
-
-
-def test_resample_host_is_resample_poly():
+def test_resample_host_is_resample_poly(monkeypatch):
+    """With the native library (libsoxr) the port resamples as the JAX
+    package does, sample for sample; without it, both take
+    ``resample_poly``."""
     x = np.random.default_rng(1).standard_normal(4800).astype(np.float32)
-    np.testing.assert_allclose(audio_io.resample_host(x, 48000, 22050),
-                               scipy.signal.resample_poly(x, 147, 320), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(audio_io.resample_host(x, 48000, 22050),
+                                  jaudio.resample_host(x, 48000, 22050))
     np.testing.assert_array_equal(audio_io.resample_host(x, 22050, 22050), x)
+    monkeypatch.setattr(audio_io, "_native", lambda: None)
+    monkeypatch.setattr(jaudio, "_native", lambda: None)
+    np.testing.assert_array_equal(audio_io.resample_host(x, 48000, 22050),
+                                  scipy.signal.resample_poly(x, 147, 320).astype(np.float32))
+    np.testing.assert_array_equal(audio_io.resample_host(x, 48000, 22050),
+                                  jaudio.resample_host(x, 48000, 22050))
 
 
 def test_maestro_fs_segments_match_jax(wav_tree):
@@ -116,14 +117,17 @@ def test_batched_matches_jax(wav_tree):
 
 
 def test_fixed_rate_and_test_chunks(wav_tree):
-    """MaestroDataset resamples the same segments on the host to the model
-    rate, zero-padded to its length; the test chunks are the JAX class's
-    (same files, offsets, lengths)."""
-    seg = next(iter(maestro.MaestroDatasetFs(_args(wav_tree))))
-    y, fs = next(iter(maestro.MaestroDataset(_args(wav_tree))))
-    assert fs == 22050 and y.shape == (2000,)
-    ref = audio_io.resample_host(seg[0], seg[1], 22050)
-    np.testing.assert_array_equal(y, np.pad(ref, (0, max(0, 2000 - ref.size)))[:2000])
+    """MaestroDataset yields the JAX class's segments, resampled on the host
+    to the model rate (44.1 and 48 kHz files, libsoxr in both) and cut or
+    zero-padded to its length; the test chunks are the JAX class's (same
+    files, offsets, lengths)."""
+    ours = maestro.MaestroDataset(_args(wav_tree))
+    ref = jmaestro.MaestroDataset(_jargs(wav_tree))
+    natives = {fs for _, fs in itertools.islice(iter(maestro.MaestroDatasetFs(_args(wav_tree))), 8)}
+    assert natives == {44100, 48000}
+    for (y, fs), (yr, fsr) in itertools.islice(zip(iter(ours), iter(ref)), 8):
+        assert fs == fsr == 22050 and y.shape == (2000,)
+        np.testing.assert_array_equal(y, yr)
     ours = list(tsetup.setup_dataset_test(_args(wav_tree)))
     ref = list(jmaestro.MaestroDatasetTestChunks(_jargs(wav_tree)))
     assert len(ours) == len(ref) == 2
@@ -230,3 +234,64 @@ def test_masked_test_set_matches_jax(wav_tree, tmp_path):
     (tmp_path / "file_0.npy").unlink()
     with pytest.raises(FileNotFoundError, match="file_0"):
         list(masked.MaskedAudioDatasetTest(compose(overrides=ov)))
+
+
+def _flac_corpus(root, rng, lengths, fs=16000):
+    """LibriSpeech layout: speaker/chapter/utterance.flac, 16-bit mono."""
+    from tests import flac_fixture as ff
+    for i, n in enumerate(lengths):
+        sub = root / f"spk{i}" / "chap0"
+        sub.mkdir(parents=True)
+        x = np.clip(rng.standard_normal(n) * 9000, -32768, 32767).astype(np.int64)
+        ff.encode(str(sub / f"utt{i}.flac"), [x], fs, kind="fixed", order=2, blocksize=1000)
+    return str(root)
+
+
+def _libri(root, *extra):
+    ov = ["dset=librispeech", f"dset.path={root}", f"dset.test.path={root}",
+          "exp=librispeech16k_8s", "exp.audio_len=4096", "exp.seed=11", *extra]
+    return compose(overrides=ov), jcompose(overrides=ov)
+
+
+@pytest.mark.parametrize("overfit", [False, True])
+def test_librispeech_train_matches_jax(tmp_path, rng, overfit):
+    """Random FLAC segments, short utterances pad-wrapped (tiled): the JAX
+    loader's segments for the same seed."""
+    from aid_tpu.data import librispeech as jlibri
+    from aid_tpu_torch.data import librispeech
+    root = _flac_corpus(tmp_path / "libri", rng, [9000, 3000, 6000])
+    ta, ja = _libri(root, f"dset.overfit={overfit}")
+    ours, ref = librispeech.LibrispeechTrain(ta), jlibri.LibrispeechTrain(ja)
+    assert ours.files == ref.files and len(ours.files) == 3
+    for (x, fs), (xr, fsr) in itertools.islice(zip(iter(ours), iter(ref)), 10):
+        assert fs == fsr == 16000 and x.shape == (4096,) and x.dtype == np.float32
+        np.testing.assert_array_equal(x, xr)
+
+
+def test_librispeech_test_matches_jax(tmp_path, rng):
+    """The first num_samples files, zero-padded to the segment length."""
+    from aid_tpu.data import librispeech as jlibri
+    from aid_tpu_torch.data import librispeech
+    root = _flac_corpus(tmp_path / "libri", rng, [3000, 9000, 5000])
+    ta, ja = _libri(root, "dset.test.num_samples=2")
+    got = list(librispeech.LibrispeechTest(ta))
+    ref = list(jlibri.LibrispeechTest(ja))
+    assert len(got) == len(ref) == len(librispeech.LibrispeechTest(ta)) == 2
+    for (x, fs, name), (xr, fsr, namer) in zip(got, ref):
+        assert (fs, name) == (fsr, namer) and name.endswith(".flac") and x.shape == (4096,)
+        np.testing.assert_array_equal(x, xr)
+    assert np.all(got[0][0][3000:] == 0)
+
+
+def test_librispeech_train_aborts_on_an_unreadable_corpus(tmp_path):
+    from aid_tpu_torch.data import librispeech
+    root = tmp_path / "bad"
+    root.mkdir()
+    for i in range(2):
+        (root / f"garbage{i}.flac").write_bytes(b"this is not flac data")
+    ds = librispeech.LibrispeechTrain(_libri(str(root))[0])
+    ds.MAX_CONSECUTIVE_FAILURES = 5
+    with pytest.raises(RuntimeError, match="5 consecutive decode failures"):
+        next(iter(ds))
+    with pytest.raises(FileNotFoundError):
+        librispeech.LibrispeechTest(_libri(str(tmp_path / "empty"))[0])

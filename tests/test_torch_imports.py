@@ -1,7 +1,13 @@
 """The PyTorch port imports no JAX and nothing of the JAX package: every
-module under aid_tpu_torch/, and chip_smoke.py, is scanned by AST."""
+module under aid_tpu_torch/ (the data loaders and the native audio loader
+included), and chip_smoke.py, is scanned by AST; and a process that reads,
+decodes and resamples audio through the port loads no library of the JAX
+package."""
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -38,3 +44,37 @@ def test_no_jax_or_aid_tpu_import(path):
                                       ("flax.linen", True)])
 def test_scan_classifies_names(name, bad):
     assert _forbidden(name) is bad
+
+
+def test_new_modules_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"aid_tpu_torch/data/audio_io.py", "aid_tpu_torch/data/librispeech.py",
+            "aid_tpu_torch/serving.py"} <= names
+
+
+PROBE = """
+import sys, numpy as np
+from aid_tpu_torch.data import audio_io
+from tests import flac_fixture as ff
+out = sys.argv[1]
+ff.encode(out + "/a.flac", [np.arange(2000) % 300], 16000)
+audio_io.write(out + "/a.wav", np.zeros(100, np.float32), 48000)
+audio_io.read(out + "/a.flac"), audio_io.read(out + "/a.wav")
+audio_io.resample_host(np.ones(4800, np.float32), 48000, 44100)
+print(audio_io.native_status())
+print([m for m in sys.modules if m.split(".")[0] in ("aid_tpu", "jax")])
+print(open("/proc/self/maps").read())
+"""
+
+
+def test_the_native_audio_path_loads_only_the_ports_library(tmp_path):
+    """The port's library is its own build (under aid_tpu_torch/native/build),
+    and nothing of aid_tpu/ is imported or mapped into the process."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", PROBE, str(tmp_path)], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300, check=True)
+    status, modules, maps = r.stdout.split("\n", 2)
+    assert status.startswith("loaded ") and "aid_tpu_torch/native/build/libaudioio-" in status
+    assert modules == "[]"
+    assert "aid_tpu_torch/native/build/libaudioio-" in maps
+    assert str(ROOT / "aid_tpu" / "native") not in maps

@@ -3,16 +3,23 @@
 ``find_gaps`` on random masks, and the window / chain scheduler with
 ``_run_batch`` stubbed by the same deterministic row-wise function in both
 services (short gaps, clustered gaps, chained long gaps, short input;
-max_batch 1 and 2): outputs must be equal. Plus one end-to-end ``inpaint``
-of the tiny network on the CPU.
+max_batch 1 and 2; inputs at the model's rate and at 16, 44.1 and 48 kHz,
+resampled by each package's native libsoxr route): outputs must be equal.
+``inpaint_file`` writes the JAX service's file; ``autotune_max_batch`` gives
+the JAX service's answer for the same two footprints. Plus ``inpaint`` and
+``precompile`` of the tiny network on the CPU.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
+from aid_tpu.data import audio_io as jaudio
 from aid_tpu.serving import InpaintingService as JaxService
 from aid_tpu.serving import find_gaps as jax_find_gaps
 from aid_tpu_torch import setup as tsetup
+from aid_tpu_torch.data import audio_io
 from aid_tpu_torch.serving import InpaintingService, find_gaps
 from aid_tpu_torch.utils.containers import EasyDict
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -28,8 +35,8 @@ def _stub(xb, mb):
     return (obs + (1.0 - mb) * fill).astype(np.float32)
 
 
-def _services(max_batch):
-    args = EasyDict(exp=dict(sample_rate=FS, audio_len=L))
+def _services(max_batch, fs=FS):
+    args = EasyDict(exp=dict(sample_rate=fs, audio_len=L))
     t = InpaintingService(args=args, network=None, sampler=None, max_batch=max_batch)
     j = JaxService(args=args, bundle=None, sampler=None, max_batch=max_batch)
     calls = {"torch": [], "jax": []}
@@ -87,10 +94,86 @@ def test_scheduler_matches_jax(case, max_batch):
     np.testing.assert_array_equal(got[mask > 0.5], audio[mask > 0.5])
 
 
-def test_foreign_sample_rate_raises():
-    t, _, _ = _services(1)
-    with pytest.raises(NotImplementedError):
-        t.inpaint(np.zeros(1500, np.float32), _mask(1500, [(10, 20)]), FS // 2)
+MODEL_FS = 22050
+FOREIGN_GAPS = [(100, 150), (900, 1000), (1500, 3400), (4000, 4040)]   # input samples
+
+
+@pytest.fixture
+def soxr_in_both():
+    assert audio_io.resampler_route() == "soxr"
+    assert jaudio._native() is not None
+
+
+@pytest.mark.parametrize("max_batch", [1, 2])
+@pytest.mark.parametrize("fs", [16000, 44100, 48000])
+def test_foreign_rate_scheduler_matches_jax(soxr_in_both, fs, max_batch):
+    """An input at another rate is resampled to the model's, inpainted and
+    resampled back: the port's result is the JAX service's, sample for
+    sample, every observed input sample exact and every gap filled."""
+    n = 5000
+    audio = (np.random.default_rng(4).standard_normal(n) * 0.3).astype(np.float32)
+    mask = _mask(n, FOREIGN_GAPS)
+    t, j, calls = _services(max_batch, MODEL_FS)
+    got = t.inpaint(audio, mask, fs)
+    ref = j.inpaint(audio, mask, fs)
+    assert got.shape == audio.shape and got.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)
+    assert len(calls["torch"]) == len(calls["jax"]) > 0
+    np.testing.assert_array_equal(got[mask > 0.5], audio[mask > 0.5])
+    assert np.abs(got[mask < 0.5]).min() > 0
+
+
+def test_inpaint_file_writes_the_jax_file(soxr_in_both, tmp_path):
+    """inpaint_file at 48 kHz: the written file is the JAX service's, byte
+    for byte, at the input's rate and length; observed samples within one
+    16-bit step of the input file's."""
+    n, fs = 6000, 48000
+    src = str(tmp_path / "in.wav")
+    audio_io.write(src, np.sin(np.arange(n) * 0.05) * 0.5, fs)
+    mask = _mask(n, [(700, 900), (2000, 4100)])
+    t, j, _ = _services(2, MODEL_FS)
+    # a quiet fill, so no sample clips and the writer does not normalise
+    t._run_batch = lambda xb, mb, seed: 0.1 * _stub(xb, mb)
+    j._run_batch = lambda xb, mb, key: 0.1 * _stub(xb, mb)
+    assert t.inpaint_file(src, mask, str(tmp_path / "t.wav"), seed=3) == str(tmp_path / "t.wav")
+    j.inpaint_file(src, mask, str(tmp_path / "j.wav"), seed=3)
+    assert open(tmp_path / "t.wav", "rb").read() == open(tmp_path / "j.wav", "rb").read()
+    assert audio_io.info(str(tmp_path / "t.wav")) == (n, fs, 1)
+    out, x = audio_io.read(str(tmp_path / "t.wav"))[0], audio_io.read(src)[0]
+    assert np.abs(out - x)[mask > 0.5].max() <= 1.0 / 32767
+    assert np.abs(out[mask < 0.5]).max() > 0
+
+
+GIB = 2 ** 30
+AUTOTUNE = {                  # f1, f2, limit, configured max_batch, cap
+    "fits_many_keeps_1": (3 * GIB, 4 * GIB, 80 * GIB, 1, 16),
+    "cap": (3 * GIB, 4 * GIB, 80 * GIB, 2, 4),
+    "caps_the_configured": (10 * GIB, 30 * GIB, 80 * GIB, 8, 16),
+    "one_row": (5 * GIB, 9 * GIB, 12 * GIB, 2, 16),
+    "does_not_fit": (3 * GIB, 4 * GIB, 2 * GIB, 1, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(AUTOTUNE))
+def test_autotune_max_batch_matches_jax(case):
+    """The same two footprints give the JAX service's fit and max_batch, or
+    its raise when not one row fits."""
+    f1, f2, limit, mb, cap = AUTOTUNE[case]
+    foot = {1: f1, 2: f2}
+    t, j, _ = _services(mb)
+    t._footprint = lambda n: foot[n]
+    j._compiled_for_batch = lambda n, seed=0: SimpleNamespace(
+        memory_analysis=lambda: SimpleNamespace(argument_size_in_bytes=foot[n] // 2,
+                                                output_size_in_bytes=0,
+                                                temp_size_in_bytes=foot[n] - foot[n] // 2))
+    if case == "does_not_fit":
+        for svc in (t, j):
+            with pytest.raises(RuntimeError, match="does not fit"):
+                svc.autotune_max_batch(limit_bytes=limit, cap=cap)
+        return
+    got = t.autotune_max_batch(limit_bytes=limit, cap=cap)
+    assert got == j.autotune_max_batch(limit_bytes=limit, cap=cap) >= 1
+    assert t.max_batch == j.max_batch <= mb
 
 
 def test_entry_point_without_cuda_raises(monkeypatch):
@@ -142,3 +225,26 @@ def test_from_config_loads_a_checkpoint(tmp_path):
     assert svc.sampler.model is svc.network
     with pytest.raises(FileNotFoundError):
         InpaintingService.from_config(TINY, device="cpu", checkpoint=str(tmp_path / "none.pt"))
+
+
+def test_precompile_leaves_a_later_inpaint_unchanged():
+    """precompile runs one guided score at [max_batch, L] and draws nothing
+    from the global generator or a request's noise: a request answered
+    after it equals the same request answered before it."""
+    svc = InpaintingService.from_config(TINY, device="cpu")
+    rng = np.random.default_rng(5)
+    audio = (rng.standard_normal(3000) * 0.1).astype(np.float32)
+    mask = _mask(3000, [(500, 700), (2000, 2100)])
+    before = svc.inpaint(audio, mask, 4096, seed=2)
+    state = torch.random.get_rng_state()
+    svc.precompile()
+    assert torch.equal(torch.random.get_rng_state(), state)
+    np.testing.assert_array_equal(svc.inpaint(audio, mask, 4096, seed=2), before)
+
+
+def test_autotune_on_the_cpu_needs_a_limit_and_a_card():
+    svc = InpaintingService.from_config(TINY, device="cpu")
+    with pytest.raises(ValueError, match="limit_bytes"):
+        svc.autotune_max_batch()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        svc.autotune_max_batch(limit_bytes=2 ** 30)

@@ -235,12 +235,27 @@ def test_bwe_feeds_the_lowpassed_observation(tmp_path, jax_params):
 
 def test_interactive_spectrogram_inpainting(tmp_path):
     """The notebook call: one segment at another rate under a painted STFT
-    mask comes back at the model's length and rate."""
+    mask comes back at the model's length and rate; the observation it
+    guides with is the masked segment as the JAX package resamples it
+    (libsoxr in both), exactly."""
+    from aid_tpu.data import audio_io as jaudio
     pt = _port_tester(tmp_path, ["tester.T=2"])
     seg = np.repeat(SynthTestSet(1).items[0][0], 2)          # at 2 FS
     mask = pt.prepare_spectral_mask()
+    fed = []
+    predict = pt.sampler.predict_spectrogram_inpainting
+
+    def spy(y, m, **k):
+        fed.append(y.clone())
+        return predict(y, m, **k)
+
+    pt.sampler.predict_spectrogram_inpainting = spy
     out = pt.interactive_spectrogram_inpainting(seg, 2 * FS, mask)
     assert out.shape == (L,) and np.isfinite(out).all()
+    ref = np.pad(jaudio.resample_host(seg, 2 * FS, FS), (0, L))[:L]
+    want = tdegr.spectral_mask(torch.from_numpy(mask), pt.t.spectrogram_inpainting.stft)(
+        torch.from_numpy(ref)[None])
+    np.testing.assert_array_equal(fed[0].numpy(), want.numpy())
 
 
 def test_cheby1_of_the_configured_order_raises(tmp_path):

@@ -241,3 +241,77 @@ def test_tpu_layout_keys_are_ignored():
         torch.testing.assert_close(a(torch.from_numpy(audio), torch.from_numpy(cnoise)),
                                    b(torch.from_numpy(audio), torch.from_numpy(cnoise)),
                                    rtol=0, atol=0)
+
+
+NET44 = ["network=paper_1912_unet_cqt_oct_attention_44k_2", "exp=musicnet44k_4s",
+         "exp.audio_len=8192", "network.cqt.bins_per_oct=4", "network.Ns=[4,4,8,8,8,8,8,8]",
+         "network.num_dils=[1,1,1,1,1,2,2,2]", "network.emb_dim=16",
+         "network.attention_dict.num_heads=2", "network.compute_dtype=float32"]
+
+
+def _random_flax_params(module, audio_len, seed):
+    """Parameters of the JAX module's tree shape (``jax.eval_shape`` of its
+    init, which is cheap where the compiled init of an 8-octave net is not),
+    drawn as a trained net's: every kernel at the main layers' scale
+    (gates included), zero biases, unit norm gains, N(0, 1) otherwise."""
+    from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), jnp.zeros((1, audio_len)),
+                            jnp.zeros((1, 1)))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        name = getattr(path[-1], "key", "")
+        if name == "kernel":
+            bound = np.sqrt(3.0 / np.prod(s.shape[:-1])) * MAIN_SCALE
+            return rng.uniform(-bound, bound, s.shape).astype(np.float32)
+        if name in ("bias", "gamma"):
+            return np.full(s.shape, name == "gamma", np.float32)
+        return rng.standard_normal(s.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def test_musicnet_44k_structure_matches_jax():
+    """The 44.1 kHz flagship's structure, composed from the reference's
+    config name in both packages at narrow widths: 8 octaves, attention at
+    levels 5-7 and the bottleneck, 8192 samples, f32. The depth-8 JAX tree
+    (down_7, up_7, the attention levels) maps onto the port's state dict
+    with state_dict_from_flax (strict load), and the outputs agree."""
+    from aid_tpu import setup as asetup
+    from aid_tpu.utils.config import compose as jax_compose
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.utils.config import compose
+    bundle = asetup.setup_network(jax_compose(overrides=NET44))
+    params = _random_flax_params(bundle.module, 8192, 11)
+    assert {"down_7_res", "up_7_res", "mid_0_res"} <= set(params["params"])
+    net = tsetup.setup_network(compose(overrides=NET44), device="cpu",
+                               state_dict=state_dict_from_flax(params))
+    assert len(net.downs) == len(net.ups) == 8
+    with_attn = [k.split(".attn_block")[0] for k in net.state_dict()
+                 if k.endswith("attn_block.proj_in.weight")]
+    assert with_attn == ["downs.5.2", "downs.6.2", "downs.7.2", "middle.0.1", "ups.0.1",
+                         "ups.1.1", "ups.2.1"]
+    # launches of the fused kernel per forward: one per dilation of every
+    # block, as the full-width config's 111
+    assert sum(m.num_dils for m in net.modules() if isinstance(m, tunet.AdaLNResBlock)) == \
+        2 * (8 + 11) + 1 + 2
+    rng = np.random.default_rng(12)
+    audio = (rng.standard_normal((2, 8192)) * 0.1).astype(np.float32)
+    cnoise = rng.standard_normal((2, 1)).astype(np.float32)
+    ref = np.asarray(jax.jit(bundle.module.apply)(params, jnp.asarray(audio),
+                                                  jnp.asarray(cnoise)))
+    with torch.no_grad():
+        got = net(torch.from_numpy(audio), torch.from_numpy(cnoise)).numpy()
+    assert np.abs(ref).max() > 1e-4
+    assert rel_err(got, ref) < REL_TOL, rel_err(got, ref)
+
+
+def test_musicnet_44k_full_width_launch_count():
+    """At full width the 44 kHz config's denoiser runs the fused kernel 111
+    times per forward (90 for the 22 kHz flagship); the module is built,
+    not run."""
+    from aid_tpu_torch.utils.config import compose
+    for ov, n in ((["network=cqtdiff_plus_44k", "exp=musicnet44k_4s"], 111), ([], 90)):
+        net = tunet.build_unet(compose(overrides=ov))
+        assert sum(m.num_dils for m in net.modules()
+                   if isinstance(m, tunet.AdaLNResBlock) and m.use_norm) == n
