@@ -72,7 +72,7 @@ def make_train_loader(sample_iter: Iterator, batch_size: int, prefetch_depth: in
 # anything could initialise one.
 
 
-def _worker_main(args, callable_name, worker_id, batch_size, q):
+def _worker_main(args, callable_name, worker_id, batch_size, q, rank=0):
     import os
     import traceback
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
@@ -80,8 +80,10 @@ def _worker_main(args, callable_name, worker_id, batch_size, q):
         from aid_tpu_torch.utils.containers import EasyDict
         from aid_tpu_torch.utils.registry import call_func_by_name
         args = EasyDict(args)
-        # decorrelate workers: each draws from its own stream
-        args["exp"]["seed"] = int(args["exp"].get("seed", 42)) + 7919 * (worker_id + 1)
+        # decorrelate workers and ranks: each draws from its own stream (a
+        # worker has no process group, so its rank is handed over)
+        args["exp"]["seed"] = (int(args["exp"].get("seed", 42)) + 1000003 * rank
+                               + 7919 * (worker_id + 1))
         ds = call_func_by_name(args, func_name=callable_name)
         for item in batched(iter(ds), batch_size):
             q.put(("ok", item))
@@ -92,10 +94,10 @@ def _worker_main(args, callable_name, worker_id, batch_size, q):
 class MultiProcessLoader:
     """N decode worker processes feeding one bounded batch queue. Batches
     arrive in completion order; each worker owns an independently seeded
-    stream of the same dataset."""
+    stream of the same dataset (and of this ``rank``'s)."""
 
     def __init__(self, args, callable_name: str, batch_size: int,
-                 num_workers: int, prefetch_depth: int = 4):
+                 num_workers: int, prefetch_depth: int = 4, rank: int = 0):
         import copy
         import multiprocessing as mp
         ctx = mp.get_context("forkserver")
@@ -104,7 +106,7 @@ class MultiProcessLoader:
         for w in range(num_workers):
             p = ctx.Process(target=_worker_main,
                             args=(copy.deepcopy(dict(args)), callable_name, w,
-                                  batch_size, self._q),
+                                  batch_size, self._q, rank),
                             daemon=True)
             p.start()
             self._procs.append(p)

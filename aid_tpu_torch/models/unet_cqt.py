@@ -14,6 +14,11 @@ network (``downs.{i}.0/1/2``, ``middle.{m}.0/1``, ``ups.{j}.0/1``, ``H.{k}``,
 Parameters are stored in f32; every op casts them to ``dtype`` (the compute
 dtype). Norm statistics, the fused kernel's math and the attention softmax
 run in f32; the decoder's coefficients and the output are f32.
+
+The conv and dense layers (``tp_split``) compute a channel slice and gather
+the rest when ``parallel.tp.place_params`` gave them a tp group;
+``TimeAttention`` with ``context_parallel`` runs ring attention over an
+installed cp mesh (``parallel.ring_attention.set_cp_mesh``).
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from aid_tpu_torch.ops import fused_adaln
 from aid_tpu_torch.ops.cqt import CQT, get_cqt
+from aid_tpu_torch.parallel import ring_attention as ring
+from aid_tpu_torch.parallel import tp
 
 SQRT2 = math.sqrt(2.0)
 MAIN_SCALE = math.sqrt(1.0 / 3.0)   # kaiming-uniform x sqrt(1/3), as the reference
@@ -44,6 +51,8 @@ def _uniform_(w: torch.Tensor, fan_in: int, scale: float, gen: torch.Generator):
 
 class Linear(nn.Linear):
     """nn.Linear applied in the compute dtype."""
+    tp_split = True
+    tp_group = None     # set by parallel.tp.place_params
 
     def __init__(self, in_features: int, out_features: int, gate: bool = False):
         super().__init__(in_features, out_features)
@@ -57,8 +66,15 @@ class Linear(nn.Linear):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), b)
+        if self.tp_group is not None:
+            return tp.split_apply(x, self.tp_group, self._local)
+        return self._local(x)
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        b = self.bias
+        if b is not None and self.tp_group is not None:
+            b = tp.local_slice(b, self.tp_group)
+        return F.linear(x, self.weight.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
 class Conv2dFT(nn.Module):
@@ -71,6 +87,8 @@ class Conv2dFT(nn.Module):
     some dilated shapes (on an H100 with cuDNN 9.2, C=256 at dilation >= 8
     took 50-105 ms a call, see PERF.md); the folded conv is an ordinary one.
     ``weight`` is OIHW, as in the reference."""
+    tp_split = True
+    tp_group = None     # set by parallel.tp.place_params
 
     def __init__(self, in_ch: int, out_ch: int, kernel=(1, 1), dilation=(1, 1)):
         super().__init__()
@@ -83,6 +101,11 @@ class Conv2dFT(nn.Module):
         _uniform_(self.weight, self.weight.shape[1] * kh * kw, MAIN_SCALE, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is not None:
+            return tp.split_apply(x, self.tp_group, self._conv)
+        return self._conv(x)
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
         if self.kernel == (1, 1) and self.dilation == (1, 1):
             return torch.matmul(x, w[:, :, 0, 0].t())
@@ -186,15 +209,19 @@ class TimeAttention(nn.Module):
     """Projection attention along time: channels collapse to ``num_heads``
     through a 1x1 conv, frequency folds into the head feature dim (F), V is
     that projection itself. QK^T, the bias and the softmax run in f32, the
-    bias added before the F^-0.5 scale."""
+    bias added before the F^-0.5 scale. With ``context_parallel`` and a cp
+    mesh installed whose size divides T, the time axis is split over the
+    mesh's ring (the bias then pre-scaled by F^-0.5)."""
 
     def __init__(self, channels: int, fdim: int, num_heads: int = 8,
                  bias_qkv: bool = False, use_rel_pos: bool = False,
-                 rel_pos_num_buckets: int = 32, rel_pos_max_distance: int = 64):
+                 rel_pos_num_buckets: int = 32, rel_pos_max_distance: int = 64,
+                 context_parallel: bool = False):
         super().__init__()
         H = num_heads
         self.num_heads = H
         self.fdim = fdim
+        self.context_parallel = context_parallel
         self.proj_in = Conv2dFT(channels, H)
         self.proj_out = Conv2dFT(H, channels)
         self.qk = _QK(H * fdim, bias_qkv)
@@ -209,16 +236,26 @@ class TimeAttention(nn.Module):
         v = z.reshape(B, T, H, F_).permute(0, 2, 1, 3)            # [B, H, T, F]
         qk = self.qk(z).reshape(B, T, H, 2 * F_).permute(0, 2, 1, 3)
         q, k = qk.split(F_, dim=-1)
-        sim = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        if self.rel_pos is not None:
-            sim = sim + self.rel_pos(T, T, x.device)
-        attn = torch.softmax(sim * (float(F_) ** -0.5), dim=-1).to(x.dtype)
-        out = torch.matmul(attn, v)                               # [B, H, T, F]
+        bias = self.rel_pos(T, T, x.device) if self.rel_pos is not None else None
+        cp = ring.get_cp_mesh() if self.context_parallel else None
+        if cp is not None and T % cp[ring.CP_AXIS].size() == 0:
+            scale = float(F_) ** -0.5
+            out = ring.ring_attention(q, k, v, cp.get_group(ring.CP_AXIS),
+                                      bias=None if bias is None else bias * scale,
+                                      scale=scale).to(x.dtype)
+        else:
+            sim = torch.matmul(q.float(), k.float().transpose(-1, -2))
+            if bias is not None:
+                sim = sim + bias
+            attn = torch.softmax(sim * (float(F_) ** -0.5), dim=-1).to(x.dtype)
+            out = torch.matmul(attn, v)                           # [B, H, T, F]
         return self.proj_out(out.permute(0, 3, 2, 1))             # [B, F, T, C]
 
 
 class _QK(nn.Module):
     """The reference's qk Conv1d (``weight`` [2HF, HF, 1]) as a matmul."""
+    tp_split = True
+    tp_group = None     # set by parallel.tp.place_params
 
     def __init__(self, hf: int, bias: bool):
         super().__init__()
@@ -232,8 +269,15 @@ class _QK(nn.Module):
                 self.bias.zero_()
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(z.dtype)
-        return F.linear(z, self.weight[:, :, 0].to(z.dtype), b)
+        if self.tp_group is not None:
+            return tp.split_apply(z, self.tp_group, self._local)
+        return self._local(z)
+
+    def _local(self, z: torch.Tensor) -> torch.Tensor:
+        b = self.bias
+        if b is not None and self.tp_group is not None:
+            b = tp.local_slice(b, self.tp_group)
+        return F.linear(z, self.weight[:, :, 0].to(z.dtype), None if b is None else b.to(z.dtype))
 
 
 class AdaLNResBlock(nn.Module):
@@ -255,9 +299,6 @@ class AdaLNResBlock(nn.Module):
             self.proj_in = Conv2dFT(dim_in, N)
         if attention is not None:
             a = attention
-            if a.get("context_parallel", False):
-                raise NotImplementedError(
-                    "attention_dict.context_parallel is not ported yet")
             if use_norm:
                 self.norm2 = NormGain(N)
             self.affine2 = Linear(emb_dim, N)
@@ -267,7 +308,8 @@ class AdaLNResBlock(nn.Module):
                 bias_qkv=a.get("bias_qkv", False),
                 use_rel_pos=a.get("use_rel_pos", False),
                 rel_pos_num_buckets=a.get("rel_pos_num_buckets", 32),
-                rel_pos_max_distance=a.get("rel_pos_max_distance", 64))
+                rel_pos_max_distance=a.get("rel_pos_max_distance", 64),
+                context_parallel=bool(a.get("context_parallel", False)))
         self.H = nn.ModuleList([Conv2dFT(N, N, kernel, dilation=(2 ** i, 1))
                                 for i in range(num_dils)])
         if use_norm:
@@ -554,8 +596,13 @@ def build_unet(args, device=None) -> UnetCQT:
     net = args.network
     for key in _TPU_LAYOUT_KEYS:
         net.get(key)  # TPU layout rewrites of the same math: ignored
+    if bool(net.get("context_parallel", False)):
+        raise NotImplementedError(
+            "network.context_parallel (full-score context parallelism: every activation "
+            "split over time, with halo exchanges around the convs and resamplers) waits "
+            "for the port's next parallelism slice; attention_dict.context_parallel (ring "
+            "attention over a cp mesh) is ported")
     unported = {"quant": net.get("quant", "none") != "none",
-                "context_parallel": bool(net.get("context_parallel", False)),
                 "use_fencoding": bool(net.get("use_fencoding", False))}
     for key, on in unported.items():
         if on:

@@ -133,6 +133,15 @@ def make_score_fn(p: edm.EDMParams, cfg: SamplerConfig,
     return score_replace
 
 
+def draw_noise(shape: Tuple[int, ...], T: int, generator: Optional[torch.Generator] = None,
+               device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The standard-normal prior [shape] and churn [T, shape] that
+    ``heun_sample`` draws from ``generator`` when neither is injected (in
+    its order: the prior first)."""
+    prior = torch.randn(tuple(shape), generator=generator, device=device)
+    return prior, torch.randn((T,) + tuple(shape), generator=generator, device=device)
+
+
 def heun_sample(shape: Tuple[int, ...], p: edm.EDMParams, cfg: SamplerConfig,
                 score_fn: Callable, proj_end: Optional[Callable] = None,
                 prior: Optional[torch.Tensor] = None,

@@ -20,7 +20,7 @@ import torch
 
 from aid_tpu_torch.diffusion import edm
 from aid_tpu_torch.sampling import degradations as degr
-from aid_tpu_torch.sampling.heun import SamplerConfig, heun_sample, make_score_fn
+from aid_tpu_torch.sampling.heun import SamplerConfig, draw_noise, heun_sample, make_score_fn
 
 
 class Sampler:
@@ -51,6 +51,15 @@ class Sampler:
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    def noise_rows(self, shape, rows: torch.Tensor,
+                   generator: Optional[torch.Generator] = None):
+        """(prior, churn) of the batch rows ``rows`` (indices into dim 0 of
+        ``shape``), drawn at the whole batch's ``shape`` as an unsplit call
+        would draw them: a batch split over ranks gets the noise of the
+        one-device run."""
+        prior, churn = draw_noise(shape, self.cfg.T, generator, self.device)
+        return prior[rows], churn[:, rows]
 
     def _denoise(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         sigma = t.reshape(1, 1).expand(x.shape[0], 1).float()

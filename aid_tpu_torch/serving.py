@@ -17,10 +17,12 @@ of ``aid_tpu/serving.py``).
     input sample comes back exactly;
   * ``inpaint_file`` reads a file, restores it and writes it at its rate;
   * ``precompile`` warms what a first request would otherwise pay for, and
-    ``autotune_max_batch`` fits ``max_batch`` to the card's memory.
-
-Serving over several devices (the JAX package's ``shard``) waits for the
-port's parallelism slice (ROADMAP queue 1, item 10).
+    ``autotune_max_batch`` fits ``max_batch`` to the card's memory;
+  * ``shard(mesh)`` serves over a process group's ranks: a ``"dp"`` mesh
+    splits each round's windows over the ranks, a ("dp", "tp") mesh also
+    splits every conv and dense layer's output channels
+    (``parallel.tp``). A ("dp", "cp") mesh (full-score context parallelism)
+    raises: it waits for the port's next parallelism slice.
 """
 from __future__ import annotations
 
@@ -29,9 +31,13 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from aid_tpu_torch import setup as tsetup
 from aid_tpu_torch.data import audio_io
+from aid_tpu_torch.parallel import mesh as pmesh
+from aid_tpu_torch.parallel import ring_attention as ring
+from aid_tpu_torch.parallel import tp
 from aid_tpu_torch.sampling import degradations as degr
 from aid_tpu_torch.sampling.heun import make_score_fn
 
@@ -58,6 +64,7 @@ class InpaintingService:
     network: object
     sampler: object
     max_batch: int = 2
+    mesh: object = None
 
     LONG_GAP_FRACTION = 0.6
     CHAIN_CONTEXT_FRACTION = 0.25
@@ -91,14 +98,68 @@ class InpaintingService:
     def device(self) -> torch.device:
         return next(self.network.parameters()).device
 
+    # ------------------------------------------------------------ parallelism
+
+    def shard(self, mesh=None) -> "InpaintingService":
+        """Serve over the ranks of a process group (started first, e.g. by
+        ``torchrun`` and ``parallel.mesh.init_distributed``); every rank
+        builds the same service, calls ``shard`` and then ``inpaint`` with
+        the same request, and every rank returns the whole answer.
+
+        1-D ``"dp"`` mesh (default: every rank): ``max_batch`` is the global
+        batch, rounded up to a multiple of the dp size. Each round's window
+        batch is split into equal row blocks, one per rank (the last row
+        repeated to fill the last block); the noise is drawn for the whole
+        round from its seed and sliced, so the answer is the one-rank
+        answer. The blocks are all-gathered.
+
+        2-D ("dp", "tp") mesh (``parallel.tp.make_tp_mesh``): each tp group
+        runs a dp block with every conv and dense layer's output channels
+        split over it (lower latency per score). Not with int8 weights.
+
+        ("dp", "cp") mesh: full-score context parallelism; raises
+        NotImplementedError (it waits for the port's next parallelism
+        slice)."""
+        if not dist.is_initialized():
+            raise RuntimeError("shard serves over a process group: call "
+                               "aid_tpu_torch.parallel.mesh.init_distributed() first")
+        mesh = mesh if mesh is not None else pmesh.make_mesh(device_type=self.device.type)
+        if pmesh.dim_size(mesh, ring.CP_AXIS) > 1:
+            raise NotImplementedError(
+                "serving over a ('dp', 'cp') mesh (full-score context parallelism) waits for "
+                "the port's next parallelism slice; attention_dict.context_parallel with "
+                "parallel.ring_attention.set_cp_mesh splits only the attention")
+        n_tp = pmesh.dim_size(mesh, tp.MODEL_AXIS)
+        if n_tp > 1:
+            if str(self.args.network.get("quant", "none")) != "none":
+                raise ValueError("tensor-parallel serving does not compose with int8 "
+                                 "quantization (network.quant must be 'none')")
+            tp.place_params(self.network, mesh)
+        n_dp = pmesh.dim_size(mesh, pmesh.DATA_AXIS)
+        self.max_batch = -(-self.max_batch // n_dp) * n_dp
+        self.mesh = mesh
+        return self
+
     def _run_batch(self, xb: np.ndarray, mb: np.ndarray, seed: int) -> np.ndarray:
         """One guided-Heun call on an [n, L] window batch, its noise drawn
-        from a generator seeded with ``seed``."""
+        from a generator seeded with ``seed``; over a mesh, this rank's dp
+        block of rows, the blocks then all-gathered."""
         y = torch.from_numpy((xb * mb).astype(np.float32)).to(self.device)
         m = torch.from_numpy(mb.astype(np.float32)).to(self.device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        rec = self.sampler.predict_inpainting(y, m, generator=gen)
-        return rec.float().cpu().numpy()
+        if self.mesh is None:
+            rec = self.sampler.predict_inpainting(y, m, generator=gen)
+            return rec.float().cpu().numpy()
+        n = y.shape[0]
+        n_dp = pmesh.dim_size(self.mesh, pmesh.DATA_AXIS)
+        k = -(-n // n_dp)
+        r = self.mesh.get_local_rank(pmesh.DATA_AXIS)
+        rows = torch.arange(r * k, (r + 1) * k, device=self.device).clamp(max=n - 1)
+        prior, churn = self.sampler.noise_rows(tuple(y.shape), rows, gen)
+        rec = self.sampler.predict_inpainting(y[rows], m[rows], prior=prior, churn=churn)
+        parts = [torch.empty_like(rec) for _ in range(n_dp)]
+        dist.all_gather(parts, rec.contiguous(), group=self.mesh.get_group(pmesh.DATA_AXIS))
+        return torch.cat(parts)[:n].float().cpu().numpy()
 
     def _guided_score_once(self, n: int, seed: int = 0) -> None:
         """One guided score (denoiser forward and input gradient) at
@@ -124,8 +185,12 @@ class InpaintingService:
         puts the CQT tables on the device and lets cuDNN pick its
         algorithms. Eager PyTorch has no whole-program compile (the JAX
         package compiles its guided-Heun program here). Draws nothing from
-        any request's noise."""
-        self._guided_score_once(self.max_batch, seed)
+        any request's noise. After ``shard``, every rank calls it and runs
+        its dp block's rows."""
+        rows = self.max_batch
+        if self.mesh is not None:
+            rows //= pmesh.dim_size(self.mesh, pmesh.DATA_AXIS)
+        self._guided_score_once(rows, seed)
 
     def _footprint(self, n: int) -> int:
         """Device bytes of a guided score at [n, audio_len]: the network's
@@ -152,7 +217,11 @@ class InpaintingService:
         caps ``max_batch`` with it; it never raises a configured
         ``max_batch`` (fitting memory is necessary, the throughput optimum
         may be lower). ``limit_bytes`` defaults to the card's memory.
-        Raises when not even one row fits."""
+        Raises when not even one row fits, and after ``shard`` (it measures
+        one device's footprint)."""
+        if self.mesh is not None:
+            raise RuntimeError("autotune_max_batch probes one device's footprint; call it "
+                               "before shard() (the dp row count then scales with the mesh)")
         if limit_bytes is None:
             if self.device.type != "cuda":
                 raise ValueError(f"no device memory limit on {self.device}; pass limit_bytes")

@@ -10,15 +10,33 @@ import torch
 from aid_tpu_torch.utils.registry import call_func_by_name
 
 
+_SHARED_CARD_SAID = False
+
+
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another; with no CUDA and no explicit device this raises."""
+    """The device an entry point runs on: the one the caller names, else
+    CUDA; with no CUDA and no explicit device this raises. Under a process
+    group rank ``LOCAL_RANK`` takes card ``LOCAL_RANK % device_count``:
+    its own card, or, when the ranks outnumber the cards, a card shared with
+    other ranks (said once)."""
+    global _SHARED_CARD_SAID
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("aid_tpu_torch runs on a CUDA device; none is available "
                            "(pass device='cpu' to run on the CPU)")
-    return torch.device("cuda")
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return torch.device("cuda")
+    import os
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    n = torch.cuda.device_count()
+    ranks = int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()))
+    if ranks > n and not _SHARED_CARD_SAID:
+        print(f"[setup] shared-card mode: {ranks} ranks on {n} card(s), rank "
+              f"{local} on cuda:{local % n}", flush=True)
+        _SHARED_CARD_SAID = True
+    return torch.device(f"cuda:{local % n}")
 
 
 def setup_network(args, device=None, state_dict: Optional[Dict[str, torch.Tensor]] = None,
@@ -42,13 +60,17 @@ def setup_network(args, device=None, state_dict: Optional[Dict[str, torch.Tensor
 
 def setup_dataset(args) -> Any:
     """Infinite training-batch iterator yielding (audio [B, T], fs [B]) numpy
-    batches: ``exp.num_workers`` decode processes, or one prefetch thread."""
+    batches of this rank's share of ``exp.batch`` (all of it without a
+    process group): ``exp.num_workers`` decode processes, or one prefetch
+    thread. Each rank draws from its own stream."""
     from aid_tpu_torch.data.loader import MultiProcessLoader, make_train_loader
+    from aid_tpu_torch.parallel import mesh as pmesh
+    rows = pmesh.local_batch_size(int(args.exp.batch), pmesh.world_size())
     nw = int(args.exp.get("num_workers", 0))
     if nw > 0:
-        return MultiProcessLoader(args, str(args.dset.callable), int(args.exp.batch), nw)
+        return MultiProcessLoader(args, str(args.dset.callable), rows, nw, rank=pmesh.rank())
     ds = call_func_by_name(args, func_name=args.dset.callable)
-    return make_train_loader(iter(ds), int(args.exp.batch))
+    return make_train_loader(iter(ds), rows)
 
 
 def setup_dataset_test(args) -> Any:

@@ -2,8 +2,10 @@
 
 Port of ``aid_tpu/training/stats.py``. The moments of the per-sample loss and
 the per-sigma-bin loss histogram are tensor reductions on the step's device
-(a ``scatter_add`` over static bin edges, no host sync); the host-side
-``Collector`` turns the rows into per-interval mean and std.
+(a ``scatter_add`` over static bin edges, no host sync); under a process
+group the trainer sums the rows over the ranks (``sum_over_ranks``), so they
+describe the global batch as the JAX step's do; the host-side ``Collector``
+turns the rows into per-interval mean and std.
 """
 from __future__ import annotations
 
@@ -36,6 +38,16 @@ def sigma_binned_moments(loss_per_sample: torch.Tensor, sigma: torch.Tensor,
     vals = torch.stack([torch.ones_like(loss), loss, loss * loss], dim=-1)
     out = torch.zeros(num_bins, 3, device=s.device)
     return out.index_add_(0, idx, vals)
+
+
+def sum_over_ranks(tensors: List[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """Each tensor summed over the ranks of ``group``, in one all-reduce:
+    per-rank moment rows become the global batch's."""
+    import torch.distributed as dist
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=group)
+    return [f.reshape(t.shape) for f, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def make_sigma_bins(sigma_min: float, sigma_max: float, num_bins: int) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""EDM training of the U-Net on one CUDA device.
+"""EDM training of the U-Net on one CUDA device or a data-parallel group.
 
 Port of ``aid_tpu/training/trainer.py``. One iteration: the host batch goes
 to the device, rows at another rate are resampled there and cropped to the
@@ -22,9 +22,27 @@ The optimizer is written as tensor ops (``torch._foreach_*``) and not as
 
 Random draws (the polarity sign, sigma, the noise) can be injected per
 micro-batch, so a test can feed this trainer and the JAX one the same draws.
+
+Under a process group (``parallel.mesh.init_distributed``) the global batch
+``exp.batch`` is split over a ``"dp"`` mesh of ranks, each of which takes its
+``local_batch_size`` rows from its own data stream:
+  * dp: the module runs under DDP (gradients averaged over the ranks, no
+    sync on every micro-batch but the last), so every rank holds the
+    global-batch gradient and takes the same step;
+  * fsdp (``exp.mesh.fsdp``): FSDP2 shards every parameter of at least
+    ``exp.mesh.fsdp_min_size`` elements on its largest dim divisible by the
+    dp size (``parallel.mesh.fsdp_shard_dim``); the EMA and both Adam moments
+    live as the same shards, and the optimizer runs on the local shards. The
+    smaller parameters stay replicated and their gradients are averaged
+    here. The pre-clip norm is the all-reduced sum of the local squares.
+The clip, the guardrails (the finite check included) and the EMA then read
+numbers that are the same on every rank. The loss statistics are summed over
+the ranks; logging, demos and checkpoint writes run on rank 0 (an FSDP
+checkpoint is gathered there first, in the one-device layout).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -33,8 +51,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from aid_tpu_torch.diffusion import edm
+from aid_tpu_torch.parallel import mesh as pmesh
 from aid_tpu_torch.training import stats as tstats
 from aid_tpu_torch.training import utils as tutils
 from aid_tpu_torch.utils import checkpoint as ckpt
@@ -57,23 +77,17 @@ class Trainer:
         if quant != "none":
             raise ValueError(f"network.quant={quant} is a serving-only path; train with "
                              "network.quant=none")
-        mesh = exp.get("mesh", {}) or {}
-        if (bool(mesh.get("fsdp", False)) or bool(mesh.get("distributed", False))
-                or int(mesh.get("dp", -1)) > 1):
-            raise NotImplementedError(
-                "aid_tpu_torch trains on one device; multi-device and multi-host "
-                "training (exp.mesh) is not ported yet (ROADMAP queue 1, item 10)")
         self._pin_mmap_threshold()
         self.net = network
         self.p = diff_params.params if hasattr(diff_params, "params") else diff_params
         named = list(network.named_parameters())
         self.names = [n for n, _ in named]
-        self.params = [p for _, p in named]
-        self.device = self.params[0].device
+        self.device = named[0][1].device
         self.groups = sorted({n.split(".")[0] for n in self.names})
 
         self.n_accum = int(exp.get("num_accumulation_rounds", 1))
         self.batch = int(exp.batch)
+        self._setup_parallel(exp.get("mesh", {}) or {})
         self.audio_len = int(exp.audio_len)
         self.target_fs = int(exp.sample_rate)
         self.aug_cfg = exp.get("augmentations", None)
@@ -93,6 +107,7 @@ class Trainer:
         self.stall_timeout_s = float(exp.get("stall_timeout_s", 1800.0))
 
         logging = args.logging
+        self.lead = pmesh.rank() == 0     # logs, demos and writes checkpoints
         self.log_interval = int(logging.get("log_interval", 1000))
         self.save_interval = int(logging.get("save_interval", 10000))
         self.heavy_log_interval = int(logging.get("heavy_log_interval", 10000))
@@ -100,7 +115,7 @@ class Trainer:
         self.remove_last = bool(logging.get("remove_last_checkpoint", False))
         self.num_sigma_bins = int(logging.get("num_sigma_bins", 20))
         prof = logging.get("profiling", {}) or {}
-        self.profile_enabled = bool(prof.get("enabled", False))
+        self.profile_enabled = bool(prof.get("enabled", False)) and self.lead
         self.profile_start = int(prof.get("start_it", 10))
         self.profile_its = int(prof.get("num_its", 3))
         self.model_dir = str(args.model_dir)
@@ -124,11 +139,82 @@ class Trainer:
             err_filter = (lambda e: hpf(prev(e))) if prev else hpf
         self.error_filter = err_filter
 
-        self.wandb = logu.WandbLogger(exp.get("wandb", None), args_dict=dict(args),
+        self.wandb = logu.WandbLogger(exp.get("wandb", None) if self.lead else None,
+                                      args_dict=dict(args),
                                       run_name=str(exp.get("exp_name", "")))
-        self.gen = torch.Generator(device=self.device).manual_seed(int(exp.get("seed", 42)))
+        # each rank draws its own sigmas and noise
+        self.gen = torch.Generator(device=self.device).manual_seed(
+            int(exp.get("seed", 42)) + 1000003 * pmesh.rank())
         self.it = 0
         self.ema: Optional[List[torch.Tensor]] = None
+
+    # ------------------------------------------------------------- parallel
+
+    def _setup_parallel(self, mesh_cfg) -> None:
+        """The dp mesh and the module's wrapper under a process group: DDP,
+        or FSDP2 with ``exp.mesh.fsdp``; the bare module otherwise.
+        ``self.params`` are this rank's pieces of the parameters (plain
+        tensors: FSDP's local shards), ``self.shard_dims`` the dim each is
+        sharded on (None: a whole tensor)."""
+        self.mesh, self.n_dp, self.fsdp = None, 1, False
+        self.model = self.net
+        self.shapes = [tuple(p.shape) for p in self.net.parameters()]
+        self.shard_dims = [None] * len(self.names)
+        if dist.is_initialized():
+            self.mesh = pmesh.make_mesh(int(mesh_cfg.get("dp", -1)),
+                                        batch=self.batch // self.n_accum,
+                                        device_type=self.device.type)
+            self.n_dp = self.mesh.size()
+            self.fsdp = bool(mesh_cfg.get("fsdp", False))
+            if self.fsdp:
+                self._shard(int(mesh_cfg.get("fsdp_min_size", 2 ** 14)))
+            elif self.n_dp > 1:
+                from torch.nn.parallel import DistributedDataParallel as DDP
+                cuda = self.device.type == "cuda"
+                self.model = DDP(self.net, process_group=self.mesh.get_group(),
+                                 device_ids=[torch.cuda.current_device()] if cuda else None)
+        self.params = [self._local(p) for p in self.net.parameters()]
+        self.sharded = torch.tensor([d is not None for d in self.shard_dims], device=self.device)
+
+    def _shard(self, min_size: int) -> None:
+        """FSDP2 over the dp mesh: one group per residual block, one for the
+        rest; the parameters under ``min_size`` elements stay whole."""
+        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.tensor import Shard
+
+        from aid_tpu_torch.models.unet_cqt import AdaLNResBlock
+        dims = {p: pmesh.fsdp_shard_dim(tuple(p.shape), self.n_dp, min_size)
+                for p in self.net.parameters()}
+        self.shard_dims = [dims[p] for p in self.net.parameters()]
+        whole = {p for p, d in dims.items() if d is None}
+        kw = dict(mesh=self.mesh, shard_placement_fn=lambda p: Shard(dims[p]),
+                  ignored_params=whole)
+        for m in self.net.modules():
+            if isinstance(m, AdaLNResBlock):
+                fully_shard(m, **kw)
+        fully_shard(self.net, **kw)
+        self._whole = [p for p in self.net.parameters() if p in whole and p.requires_grad]
+
+    @staticmethod
+    def _local(t):
+        """A DTensor's local shard (a view: in-place updates reach it), else t."""
+        return t.to_local().detach() if hasattr(t, "to_local") else t
+
+    def _piece(self, full: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's piece of parameter i's full tensor."""
+        d = self.shard_dims[i]
+        return full if d is None else full.chunk(self.n_dp, d)[self.mesh.get_local_rank()]
+
+    def _full(self, tensors) -> Optional[List[torch.Tensor]]:
+        """Full CPU tensors of per-parameter pieces, on rank 0 (None on the
+        others); every rank calls it."""
+        if not self.fsdp:
+            return [t.detach().cpu() for t in tensors] if self.lead else None
+        return pmesh.gather_to_host(tensors, self.shard_dims, self.mesh.get_group())
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.get_group())
 
     # ------------------------------------------------------------------ state
 
@@ -144,16 +230,19 @@ class Trainer:
         self.applied = torch.zeros((), dtype=torch.int64, device=self.device)
         self.it = 0
         if bool(self.args.logging.get("print_model_summary", False)):
-            n = sum(p.numel() for p in self.params)
-            print(f"[trainer] {n} parameters in {len(self.params)} tensors", flush=True)
+            n = sum(int(np.prod(s)) for s in self.shapes)
+            print(f"[trainer] {n} parameters in {len(self.shapes)} tensors", flush=True)
 
-    def state_dict(self) -> Dict:
-        """The checkpoint payload (``utils/checkpoint.py`` layout), on the CPU."""
-        def cpu(ts):
-            return {n: t.detach().cpu() for n, t in zip(self.names, ts)}
-        return {"it": self.it, "network": cpu(self.params), "ema": cpu(self.ema),
-                "optimizer": {"mu": cpu(self.mu), "nu": cpu(self.nu),
-                              "count": int(self.count)},
+    def state_dict(self) -> Optional[Dict]:
+        """The checkpoint payload (``utils/checkpoint.py`` layout), full
+        tensors on the CPU, on rank 0; None on the other ranks, which take
+        part in the gathers."""
+        parts = [self._full(ts) for ts in (self.params, self.ema, self.mu, self.nu)]
+        if not self.lead:
+            return None
+        net, ema, mu, nu = (dict(zip(self.names, ts)) for ts in parts)
+        return {"it": self.it, "network": net, "ema": ema,
+                "optimizer": {"mu": mu, "nu": nu, "count": int(self.count)},
                 "gnorm_ema": float(self.gnorm_ema), "applied": int(self.applied)}
 
     def load_state_dict(self, payload: Dict) -> None:
@@ -164,13 +253,13 @@ class Trainer:
             self.init_state()
         src, ema_src = payload["network"], payload.get("ema", payload["network"])
         same = set(src) == set(self.names) and all(
-            tuple(src[n].shape) == tuple(p.shape) for n, p in zip(self.names, self.params))
+            tuple(src[n].shape) == shape for n, shape in zip(self.names, self.shapes))
         copied = 0
         with torch.no_grad():
-            for n, p, e in zip(self.names, self.params, self.ema):
-                if n in src and tuple(src[n].shape) == tuple(p.shape):
-                    p.copy_(src[n])
-                    e.copy_(ema_src[n])
+            for i, (n, p, e) in enumerate(zip(self.names, self.params, self.ema)):
+                if n in src and tuple(src[n].shape) == self.shapes[i]:
+                    p.copy_(self._piece(src[n], i))
+                    e.copy_(self._piece(ema_src[n], i))
                     copied += 1
                 else:
                     e.copy_(p)
@@ -179,9 +268,9 @@ class Trainer:
         opt = payload.get("optimizer") if same else None
         with torch.no_grad():
             if opt is not None:
-                for n, m, v in zip(self.names, self.mu, self.nu):
-                    m.copy_(opt["mu"][n])
-                    v.copy_(opt["nu"][n])
+                for i, (n, m, v) in enumerate(zip(self.names, self.mu, self.nu)):
+                    m.copy_(self._piece(opt["mu"][n], i))
+                    v.copy_(self._piece(opt["nu"][n], i))
                 self.count.fill_(int(opt["count"]))
             else:  # the optimizer restarts on a partial load
                 for t in self.mu + self.nu:
@@ -197,11 +286,17 @@ class Trainer:
         return os.path.join(os.path.abspath(self.model_dir), f"{self.exp.exp_name}-{it}.pt")
 
     def save_checkpoint(self) -> str:
-        path = ckpt.save(self._ckpt_path(self.it), self.state_dict())
-        if self.remove_last:
-            for old in ckpt.list_checkpoints(self.model_dir, str(self.exp.exp_name)):
-                if old != path and old.endswith(".pt"):
-                    os.remove(old)
+        """Rank 0 writes ``{exp_name}-{it}.pt``; every rank returns its path
+        once it is on disk."""
+        path = self._ckpt_path(self.it)
+        payload = self.state_dict()
+        if self.lead:
+            ckpt.save(path, payload)
+            if self.remove_last:
+                for old in ckpt.list_checkpoints(self.model_dir, str(self.exp.exp_name)):
+                    if old != path and old.endswith(".pt"):
+                        os.remove(old)
+        self._barrier()
         return path
 
     def resume_from_checkpoint(self, path: Optional[str] = None) -> bool:
@@ -224,11 +319,12 @@ class Trainer:
         ``fs`` [n_accum, B] host arrays; ``draws`` optionally gives each
         micro-batch's ``sign`` [B, 1], ``sigma`` [B] and sigma-scaled
         ``noise`` [B, audio_len]. Returns (loss, per-sample loss, sigma,
-        gradients averaged over the micro-batches)."""
-        for p in self.params:
-            p.grad = None
+        gradients averaged over the micro-batches, and over the ranks under a
+        process group; this rank's pieces under FSDP)."""
+        self.net.zero_grad(set_to_none=True)
         losses, per_sample, sigmas = [], [], []
-        for i in range(audio.shape[0]):
+        n_micro = audio.shape[0]
+        for i in range(n_micro):
             d = {k: torch.tensor(v, device=self.device)
                  for k, v in (draws[i] if draws else {}).items()}
             x = torch.from_numpy(np.ascontiguousarray(audio[i], np.float32)).to(self.device)
@@ -236,15 +332,28 @@ class Trainer:
                 # native-rate segments: resample on the device, crop to the model length
                 x = tutils.resample_batch(x, fs[i], self.target_fs)[..., :self.audio_len]
             x = tutils.augment(x, self.aug_cfg, self.gen, sign=d.get("sign"))
-            err2, sigma = edm.loss_fn(self.p, self.net, x, self.gen, self.error_filter,
-                                      sigma=d.get("sigma"), noise=d.get("noise"))
-            ps = err2.reshape(err2.shape[0], -1).mean(-1)
-            loss = ps.mean()
-            loss.backward()
+            # DDP averages the gradients over the ranks in the last backward
+            sync = (contextlib.nullcontext() if i == n_micro - 1 or self.model is self.net
+                    else self.model.no_sync())
+            with sync:
+                err2, sigma = edm.loss_fn(self.p, self.model, x, self.gen, self.error_filter,
+                                          sigma=d.get("sigma"), noise=d.get("noise"))
+                ps = err2.reshape(err2.shape[0], -1).mean(-1)
+                loss = ps.mean()
+                loss.backward()
             losses.append(loss.detach())
             per_sample.append(ps.detach())
             sigmas.append(sigma.detach())
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.fsdp and self._whole:
+            # FSDP averages its shards' gradients; the whole ones are averaged here
+            whole = [p.grad for p in self._whole]
+            flat = torch.cat([g.reshape(-1) for g in whole])
+            dist.all_reduce(flat, group=self.mesh.get_group())
+            flat /= self.n_dp
+            torch._foreach_copy_(whole, [f.view_as(g) for f, g in
+                                         zip(flat.split([g.numel() for g in whole]), whole)])
+        grads = [self._local(p.grad) if p.grad is not None else torch.zeros_like(q)
+                 for p, q in zip(self.net.parameters(), self.params)]
         n = len(losses)
         if n > 1:
             torch._foreach_div_(grads, float(n))
@@ -256,6 +365,12 @@ class Trainer:
         """Clip, Adam, LR ramp, guardrails and EMA; returns the step's metrics
         (device tensors: nothing here waits for the device)."""
         norms = torch._foreach_norm(grads)
+        if self.fsdp:
+            # shards: all-reduce the squares; whole tensors counted once
+            sq = torch.stack(norms) ** 2
+            sq = torch.where(self.sharded | self.lead, sq, torch.zeros_like(sq))
+            dist.all_reduce(sq, group=self.mesh.get_group())
+            norms = list(sq.sqrt().unbind())
         gnorm = torch.linalg.vector_norm(torch.stack(norms))
         g = grads
         if self.use_clip:
@@ -324,10 +439,14 @@ class Trainer:
         for n, v in zip(self.names, norms):
             k = n.split(".")[0]
             sq[k] = sq[k] + v * v
+        bins = tstats.sigma_binned_moments(per_sample, sigma, self._edges)
+        moments = tstats.moments(per_sample)
+        if self.mesh is not None:
+            # the global batch's loss and statistics
+            loss, bins, moments = tstats.sum_over_ranks(
+                [loss / self.n_dp, bins, moments], self.mesh.get_group())
         return {"loss": loss, "grad_norm": gnorm, "gnorm_ema": self.gnorm_ema,
-                "skipped": skipped,
-                "sigma_bins": tstats.sigma_binned_moments(per_sample, sigma, self._edges),
-                "loss_moments": tstats.moments(per_sample),
+                "skipped": skipped, "sigma_bins": bins, "loss_moments": moments,
                 "grad_norms_by_module": {k: v.sqrt() for k, v in sq.items()}}
 
     def get_batch(self):
@@ -336,8 +455,9 @@ class Trainer:
         return np.asarray(audio, np.float32), np.asarray(fs, np.int64)
 
     def train_step(self, audio, fs, draws: Optional[List[Dict]] = None) -> Dict:
-        """One iteration on a host batch of n_accum x B rows, split into
-        n_accum micro-batches in order."""
+        """One iteration on a host batch of n_accum x B rows (this rank's
+        rows under a process group), split into n_accum micro-batches in
+        order."""
         audio = np.asarray(audio, np.float32)
         audio = audio.reshape(self.n_accum, -1, audio.shape[-1])
         fs = np.asarray(fs).reshape(self.n_accum, -1)
@@ -365,15 +485,23 @@ class Trainer:
         return out
 
     def heavy_logging(self) -> None:
-        """Demo samples with the EMA weights through the tester:
+        """Demo samples with the EMA weights through the tester, on rank 0:
         ``model_dir/heavy_logging/it_N/uncond_i.wav`` and a spectrogram
         ``.png`` beside each. A failing demo is skipped with its traceback
         (demos must not stop training); after two failures in a row the
-        demos stay off for this process."""
-        if self.tester is None or self._demo_failures >= 2:
+        demos stay off for this process. Every rank calls it: under FSDP
+        the ranks gather the EMA when rank 0 asks for a demo."""
+        want = self.tester is not None and self._demo_failures < 2
+        ema = self.ema
+        if self.fsdp:
+            flag = torch.tensor(float(want), device=self.device)
+            dist.broadcast(flag, src=0, group=self.mesh.get_group())
+            want = bool(flag > 0)
+            ema = self._full(self.ema) if want else None
+        if not (want and self.lead):
             return
         try:
-            x = self.tester.sample_unconditional_ema(dict(zip(self.names, self.ema)))
+            x = self.tester.sample_unconditional_ema(dict(zip(self.names, ema)))
             d = os.path.join(self.model_dir, "heavy_logging", f"it_{self.it}")
             for i, xi in enumerate(x):
                 fp = logu.write_audio_file(xi, self.target_fs, f"uncond_{i}", d)
@@ -427,7 +555,12 @@ class Trainer:
                         break
         except OSError:
             return
-        if rss_gb > cap_gb:
+        over = rss_gb > cap_gb
+        if self.mesh is not None:   # every rank recycles, or none
+            flag = torch.tensor(float(over), device=self.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.mesh.get_group())
+            over = bool(flag > 0)
+        if over:
             print(f"[trainer] host RSS {rss_gb:.1f} GB > exp.max_host_rss_gb={cap_gb:.0f}: "
                   f"recycling the process after the it-{it} checkpoint (supervisor resumes)",
                   flush=True)
@@ -494,7 +627,7 @@ class Trainer:
                 prof.export_chrome_trace(trace)
                 print(f"[profile] {trace}", flush=True)
                 prof = None
-            if it % self.log_interval == 0 or it == 1:
+            if self.lead and (it % self.log_interval == 0 or it == 1):
                 scalars = self.easy_logging(metrics)
                 dt = time.time() - t0
                 applied = int(self.applied)
@@ -528,4 +661,5 @@ class Trainer:
                 beat[0] = time.time()
         if beat is not None:
             self._stall_stop.set()  # horizon reached: retire the guard
+        self._barrier()
         return it

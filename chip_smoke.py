@@ -53,6 +53,23 @@ Phases (any failure exits non-zero before the last line is printed):
           corpus (remat on, TF32 as the training default), checkpoints at 2
           and 4; a second main resumes from the step-2 checkpoint and
           reaches step 4; step time, peak memory and launches per step;
+  7. multi-device (the port's torch.distributed path), full flagship width:
+       a. ``aid_tpu_torch.train.main`` with exp.mesh.fsdp over NCCL, one rank
+          (the card count), 2 steps, TF32 as the training default: launches,
+          step time, peak memory, the checkpoint in the one-device layout;
+       b. two ranks sharing the card over gloo (this script again, with
+          ``--rank R DIR``), each holding the kernel against its plain
+          version: 2 DDP steps and 2 FSDP steps at global batch 4, f32, TF32
+          off, against the one-rank trainer's steps on the same batch and
+          draws (loss, pre-clip norm, parameters); step time and peak memory
+          per rank;
+       c. ``InpaintingService.shard()`` over dp=2 answers phase 5's request
+          (b) (2 rows a round, one per rank): within phase 3's bf16
+          tolerance of phase 5's answer, observed samples bit-exact, RTF;
+       d. one f32 guided score with the conv and dense layers split over
+          tp=2, and (e) one with attention_dict.context_parallel over a cp=2
+          mesh, each against the replicated score: errors and wall times;
+       every rank's launches go into the kernels line;
   8. evaluation (the third main path) at full flagship width, bf16, on the
      same corpus with a test-split row at 44.1 kHz (resampled to 22.05 kHz
      by the tester):
@@ -379,12 +396,13 @@ def phase_serving(torch, fa, np, batches):
     steps_per_traj = 2 * T - 1 if order == 2 else T
     torch.cuda.synchronize()
     fa.reset_launch_count()          # the main path starts here
-    results = []
+    results, answers = [], {}
     for name, n, m in reqs:
         audio = music(np, n, fs, seed=len(results))
         r0 = len(rounds)
         t1 = time.time()
         out = svc.inpaint(audio, m, fs, seed=1)
+        answers[name] = {"audio": audio, "mask": m, "fs": fs, "answer": out}
         wall = time.time() - t1
         gap = m < 0.5
         rec = {"request": name, "seconds_of_audio": n / fs, "gap_samples": int(gap.sum()),
@@ -407,7 +425,7 @@ def phase_serving(torch, fa, np, batches):
         fail(f"kernel launches {launches} != {expected}: the path skipped the kernel")
     if not set(rounds) <= set(batches):
         fail(f"rounds of {sorted(set(rounds))} rows; the kernel was checked at {batches}")
-    return launches, results[0]["rtf"]
+    return launches, results[0]["rtf"], answers["b_four_25ms_gaps"]
 
 
 def phase_serving_44k(torch, fa, np, work, card):
@@ -920,6 +938,413 @@ def phase_training(torch, fa, np, work, card, shapes):
     return entry["launches"], worst
 
 
+# ------------------------------------------------------- multi-device (7)
+
+PAR_WORLD = 2              # ranks of phase 7b-7e, sharing the one card over gloo
+F32_TOL = 1e-4             # f32 (TF32 off) comparisons of phase 7, max|d| / max|ref|
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(rank, world, port):
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+            "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "localhost",
+            "MASTER_PORT": str(port)}
+
+
+def rel(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def phase_parallel_entry(torch, fa, corpus, work, card):
+    """7a: aid_tpu_torch.train.main with exp.mesh.fsdp over NCCL, one rank
+    per card, 2 steps; its launches are counted."""
+    import torch.distributed as dist
+    from aid_tpu_torch import train as ttrain
+    from aid_tpu_torch.training.trainer import Trainer
+    from aid_tpu_torch.utils import checkpoint as ckpt
+    world = 1
+    log(f"== phase 7a: aid_tpu_torch.train.main, exp.mesh.fsdp=true, over NCCL at world size "
+        f"{world} ({torch.cuda.device_count()} card(s)), 2 steps")
+    md = os.path.join(work, "fsdp_main")
+    ov = train_overrides(corpus, md, "exp.total_its=2", "logging.save_interval=2",
+                         "logging.log_interval=1", "exp.mesh.distributed=True",
+                         "exp.mesh.fsdp=True")
+    steps, orig = [], Trainer.train_step
+
+    def timed(self, audio, fs, draws=None):
+        torch.cuda.synchronize()
+        n0, t0 = fa.launch_count(), time.time()
+        m = orig(self, audio, fs, draws)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        steps.append({"it": self.it, "wall_s": time.time() - t0, "loss": loss,
+                      "launches": fa.launch_count() - n0, "backend": dist.get_backend(),
+                      "world": dist.get_world_size(), "fsdp": self.fsdp,
+                      "sharded_tensors": sum(d is not None for d in self.shard_dims)})
+        log(json.dumps({"train_step": steps[-1]}))
+        return m
+
+    saved = {k: os.environ.get(k) for k in rank_env(0, 1, 0)}
+    os.environ.update(rank_env(0, world, free_port()))
+    Trainer.train_step = timed
+    torch.backends.cudnn.allow_tf32 = True       # the training default (README, TF32)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()                  # 7a's main path starts here
+        if ttrain.main(ov) != 0:
+            fail("the fsdp train.main returned non-zero")
+        launches = fa.launch_count()             # ... and ends here
+    finally:
+        Trainer.train_step = orig
+        torch.backends.cudnn.allow_tf32 = False
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    final = ckpt.load(os.path.join(md, "22k_8s-2.pt"))
+    per_step = 2 * 90
+    rec = {"check": "fsdp_train_entry", "steps": [s["it"] for s in steps],
+           "backend": steps[0]["backend"] if steps else None, "world": world,
+           "group_ended": not dist.is_initialized(), "launches": launches,
+           "expected_launches": 2 * per_step, "step_s": [s["wall_s"] for s in steps],
+           "peak_gb": peak, "checkpoint_it": final["it"],
+           "checkpoint_full_shapes": all(t.dim() > 0 for t in final["network"].values()),
+           "card": card}
+    log(json.dumps(rec))
+    if not (rec["steps"] == [1, 2] and rec["backend"] == "nccl" and rec["group_ended"]
+            and all(s["fsdp"] and s["sharded_tensors"] == 0 for s in steps)
+            and launches == 2 * per_step and final["it"] == 2
+            and all(math.isfinite(s["loss"]) for s in steps)):
+        fail(f"fsdp training entry point: {rec}")
+    return rec
+
+
+def one_rank_steps(torch, np, corpus, work):
+    """7b's reference: the one-rank trainer's 2 steps (TF32 off) on a
+    global batch of 4 and its draws."""
+    from aid_tpu_torch import train as ttrain
+    args = ttrain.compose_args(train_overrides(corpus, os.path.join(work, "ref"),
+                                               "exp.lr_rampup_it=1"))
+    batches = mixed_batches(np, args, 2)
+    tr = flagship_trainer(torch, args)
+    rng = np.random.default_rng(11)
+    draws = [numpy_draws(np, tr.p, rng, TRAIN_BATCH, int(args.exp.audio_len)) for _ in batches]
+    p0 = [p.detach().cpu() for p in tr.params]
+    ref = {"loss": [], "grad_norm": []}
+    for (a, f), d in zip(batches, draws):
+        m = tr.train_step(a, f, d)
+        ref["loss"].append(float(m["loss"]))
+        ref["grad_norm"].append(float(m["grad_norm"]))
+    ref["params"] = [p.detach().cpu() for p in tr.params]
+    ref["p0"] = p0
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return batches, draws, ref
+
+
+def run_ranks(torch, np, work, inputs, timeout=900):
+    """Start PAR_WORLD copies of this script as the ranks of a process group
+    (``--rank R WORKDIR``); returns their JSON results. A rank that fails or
+    outlives ``timeout`` fails the phase; no rank is left running."""
+    import pickle
+    import subprocess
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(work, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    port = free_port()
+    procs = []
+    for r in range(PAR_WORLD):
+        env = dict(os.environ, **rank_env(r, PAR_WORLD, port))
+        with open(os.path.join(work, f"rank{r}.log"), "w") as out:
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank",
+                                           str(r), work], env=env, stdout=out,
+                                          stderr=subprocess.STDOUT))
+    try:
+        deadline = time.time() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        text = open(os.path.join(work, f"rank{r}.log")).read()
+        for line in text.splitlines():
+            if line.startswith(("[mesh]", "[setup]", "[ring]")):
+                log(f"rank {r}: {line}")
+        if p.returncode != 0:
+            log(text[-8000:])
+            fail(f"phase 7 rank {r} exited {p.returncode}")
+    return [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(PAR_WORLD)]
+
+
+def rank_main(rank, work):
+    """One rank of phase 7b-7e: a process group over gloo (two ranks share
+    the card), the kernel against its plain version, then each path with
+    the launch count set to 0 before it and read after it."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(here, ".triton_cache"))
+    from aid_tpu_torch.ops import fused_adaln as fa
+    from aid_tpu_torch.parallel import mesh as pmesh
+    from aid_tpu_torch.setup import resolve_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(work, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    pmesh.init_distributed(enable=True)
+    world = dist.get_world_size()
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "device": str(resolve_device())}
+    gen = torch.Generator(device="cuda").manual_seed(100 + rank)
+    x = torch.randn((1, 14336, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    inv = torch.rand(1, 256, generator=gen, device="cuda") + 0.5
+    mod = torch.rand(1, 256, generator=gen, device="cuda") + 0.5
+    with torch.no_grad():
+        y, yp = fa._fused_cuda(x, inv, mod, "tanh"), fa.fused_plain(x, inv, mod, "tanh")
+    out["kernel_vs_plain"] = {"ok": bf16_ulp_ok(y, yp),
+                              "max_abs_err": (y.float() - yp.float()).abs().max().item()}
+    out["train"] = rank_train(torch, fa, np, inp, rank, world, work)
+    out["serve"] = rank_serve(torch, fa, np, inp)
+    out["tp"], out["cp"] = rank_scores(torch, fa)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def rank_train(torch, fa, np, inp, rank, world, work):
+    """7b: 2 DDP steps and 2 FSDP steps on this rank's rows of the global
+    batch and draws (TF32 off); rank 0 keeps the gathered parameters."""
+    from aid_tpu_torch import train as ttrain
+    res = {}
+    k = TRAIN_BATCH // world
+    rows = slice(rank * k, (rank + 1) * k)
+    for mode, extra in (("dp", []), ("fsdp", ["exp.mesh.fsdp=True"])):
+        args = ttrain.compose_args(train_overrides(
+            inp["corpus"], os.path.join(work, mode), "exp.lr_rampup_it=1",
+            f"exp.mesh.dp={world}", *extra))
+        tr = flagship_trainer(torch, args)
+        rec = {"wrapper": type(tr.model).__name__, "loss": [], "grad_norm": [], "step_s": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()                  # 7b's path starts here
+        for (a, f), d in zip(inp["batches"], inp["draws"]):
+            t0 = time.time()
+            m = tr.train_step(a[rows], f[rows], [{n: v[rows] for n, v in d[0].items()}])
+            rec["loss"].append(float(m["loss"]))
+            rec["grad_norm"].append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.time() - t0)
+        rec["launches"] = fa.launch_count()      # ... and ends here
+        rec["expected_launches"] = len(inp["batches"]) * 2 * launches_per_forward(tr.net)
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["resident_gb"] = torch.cuda.memory_allocated() / 2 ** 30
+        state = tr.state_dict()
+        if state is not None:
+            torch.save(state["network"], os.path.join(work, f"{mode}_params.pt"))
+        res[mode] = rec
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def rank_serve(torch, fa, np, inp):
+    """7c: phase 5's request (b) served by shard() over dp (one row of each
+    2-row round per rank)."""
+    from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
+    from aid_tpu_torch.serving import InpaintingService
+    svc = InpaintingService.from_config([])
+    svc.network.init_weights(0, gate_scale=MAIN_SCALE)   # phase 5's weights
+    svc.shard()
+    rounds, run = [], svc._run_batch
+
+    def counted(xb, mb, seed):
+        rounds.append(xb.shape[0])
+        return run(xb, mb, seed)
+
+    svc._run_batch = counted
+    req = inp["request_b"]
+    torch.cuda.synchronize()
+    fa.reset_launch_count()                      # 7c's path starts here
+    t0 = time.time()
+    got = svc.inpaint(req["audio"], req["mask"], req["fs"], seed=1)
+    wall = time.time() - t0
+    launches = fa.launch_count()                 # ... and ends here
+    ref = torch.from_numpy(req["answer"])
+    obs = req["mask"] > 0.5
+    steps = 2 * svc.sampler.cfg.T - 1
+    rec = {"rounds": rounds, "max_batch": svc.max_batch, "wall_s": wall,
+           "rtf": len(req["audio"]) / req["fs"] / wall, "rel_err": rel(torch.from_numpy(got), ref),
+           "observed_exact": bool(np.array_equal(got[obs], req["audio"][obs])),
+           "finite": bool(np.isfinite(got).all()), "launches": launches,
+           "expected_launches": 90 * steps * len(rounds)}
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def rank_scores(torch, fa):
+    """7d and 7e: one f32 guided score (batch 1, TF32 off) of the flagship
+    replicated and with its conv and dense layers split over tp=2; then one
+    of the flagship with attention_dict.context_parallel, without and with
+    the cp=2 mesh."""
+    from aid_tpu_torch.parallel import ring_attention as ring
+    from aid_tpu_torch.parallel import tp
+    from aid_tpu_torch.tools.profile_denoiser import flagship_case
+
+    def score(case):
+        torch.cuda.synchronize()
+        n0, t0 = fa.launch_count(), time.time()
+        s = case.score(case.audio, case.sigma[0])
+        torch.cuda.synchronize()
+        return s, time.time() - t0, fa.launch_count() - n0
+
+    out = {}
+    for name in ("tp", "cp"):
+        case = flagship_case("float32", 1, overrides=(
+            ["network.attention_dict.context_parallel=True"] if name == "cp" else []))
+        score(case)                              # warm: Triton variants, cuDNN, CQT tables
+        fa.reset_launch_count()                  # 7d / 7e's path starts here
+        ref, ref_s, ref_n = score(case)
+        calls, dense = [], ring.ring_attention
+        if name == "tp":
+            tp.place_params(case.net, tp.make_tp_mesh(PAR_WORLD))
+            split, _, _ = score(case)            # warm the split layers
+            got, got_s, got_n = score(case)
+        else:
+            def counted(*a, **k):
+                calls.append(a[0].shape[2])
+                return dense(*a, **k)
+            ring.ring_attention = counted
+            ring.set_cp_mesh(ring.make_cp_mesh(PAR_WORLD))
+            try:
+                score(case)
+                calls.clear()
+                got, got_s, got_n = score(case)
+            finally:
+                ring.set_cp_mesh(None)
+                ring.ring_attention = dense
+        out[name] = {"rel_err": rel(got, ref), "tol": F32_TOL, "replicated_s": ref_s,
+                     f"{name}_s": got_s, "launches": fa.launch_count(),   # ... and ends here
+                     "launches_per_score": [ref_n, got_n], "ring_calls": calls,
+                     "finite": bool(torch.isfinite(got).all())}
+        del case, ref, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out["tp"], out["cp"]
+
+
+def phase_parallel(torch, fa, np, work, card, request_b):
+    """Phase 7: 7a in this process; 7b-7e on PAR_WORLD ranks sharing the
+    card (gloo), held against one rank."""
+    log("== phase 7: multi-device training and serving over torch.distributed")
+    corpus = os.path.join(work, "maestro")
+    t_phase = time.time()
+    entry = phase_parallel_entry(torch, fa, corpus, work, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== phase 7b reference: the one-rank trainer's 2 steps at batch {TRAIN_BATCH}, f32, "
+        "TF32 off")
+    batches, draws, ref = one_rank_steps(torch, np, corpus, work)
+    log(f"== phase 7b-7e: {PAR_WORLD} ranks on one card over gloo: dp and fsdp steps, "
+        "shard() over dp on phase 5's request (b), a tp=2 and a cp=2 guided score")
+    t0 = time.time()
+    ranks = run_ranks(torch, np, os.path.join(work, "ranks"),
+                      {"corpus": corpus, "batches": batches, "draws": draws,
+                       "request_b": request_b})
+    ranks_wall = time.time() - t0
+    launches, problems = entry["launches"], []
+    for r in ranks:
+        log(json.dumps({"rank": r["rank"], "backend": r["backend"], "world": r["world"],
+                        "device": r["device"], "kernel_vs_plain": r["kernel_vs_plain"]}))
+        if not (r["backend"] == "gloo" and r["world"] == PAR_WORLD
+                and r["kernel_vs_plain"]["ok"]):
+            problems.append(f"rank {r['rank']}: route or kernel check")
+    summary = {}
+    for mode in ("dp", "fsdp"):
+        got = torch.load(os.path.join(work, "ranks", f"{mode}_params.pt"))
+        whole = ref["params"]
+        names = list(got)
+        moved = max((b - a).abs().max().item() for a, b in zip(ref["p0"], whole))
+        dev = max((got[n] - b).abs().max().item() for n, b in zip(names, whole))
+        num = sum(((got[n] - b).double() ** 2).sum().item() for n, b in zip(names, whole))
+        den = sum(((b - a).double() ** 2).sum().item() for a, b in zip(ref["p0"], whole))
+        recs = [r["train"][mode] for r in ranks]
+        rec = {"check": f"{mode}_steps", "wrapper": recs[0]["wrapper"],
+               "loss": recs[0]["loss"], "one_rank_loss": ref["loss"],
+               "grad_norm": recs[0]["grad_norm"], "one_rank_grad_norm": ref["grad_norm"],
+               "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(recs[0]["loss"],
+                                                                     ref["loss"])),
+               "grad_norm_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                        zip(recs[0]["grad_norm"], ref["grad_norm"])),
+               "update_rel_l2": (num / den) ** 0.5 if den else float("inf"),
+               "max_abs_dev": dev, "max_move": moved, "tol": {
+                   "loss_and_grad_norm": F32_TOL, "update_rel_l2": 1e-3,
+                   "max_abs_dev": "0.1 x max move"},
+               "step_s": [r["step_s"] for r in recs], "peak_gb": [r["peak_gb"] for r in recs],
+               "resident_gb": [r["resident_gb"] for r in recs],
+               "launches": [r["launches"] for r in recs], "card": card}
+        log(json.dumps(rec))
+        launches += sum(rec["launches"])
+        if not (rec["loss_rel_err"] <= F32_TOL and rec["grad_norm_rel_err"] <= F32_TOL
+                and rec["update_rel_l2"] <= 1e-3 and dev <= 0.1 * moved
+                and all(r["launches"] == r["expected_launches"] for r in recs)):
+            problems.append(f"{mode} steps against the one-rank steps")
+        summary[mode] = {"step_s": float(np.median([s for r in recs for s in r["step_s"][1:]])),
+                         "peak_gb_per_rank": max(rec["peak_gb"]),
+                         "resident_gb_per_rank": max(rec["resident_gb"])}
+    serve = [r["serve"] for r in ranks]
+    rec = {"check": "shard_dp_serving", **serve[0], "tol": BF16_TOL,
+           "ranks_agree": all(s["rel_err"] == serve[0]["rel_err"] for s in serve),
+           "launches": [s["launches"] for s in serve], "card": card}
+    log(json.dumps(rec))
+    launches += sum(s["launches"] for s in serve)
+    if not (rec["finite"] and rec["observed_exact"] and rec["rel_err"] <= BF16_TOL
+            and rec["ranks_agree"] and rec["rounds"] == [2, 2]
+            and all(s["launches"] == s["expected_launches"] for s in serve)):
+        problems.append("dp serving against the one-rank answer")
+    summary["dp_serving_rtf"] = serve[0]["rtf"]
+    for name in ("tp", "cp"):
+        recs = [r[name] for r in ranks]
+        rec = {"check": f"{name}_guided_score", **recs[0],
+               "rel_err_by_rank": [r["rel_err"] for r in recs], "card": card}
+        log(json.dumps(rec))
+        launches += sum(r["launches"] for r in recs)
+        if not (all(r["finite"] and r["rel_err"] <= F32_TOL for r in recs)
+                and all(r["launches_per_score"] == [90, 90] for r in recs)
+                and (name == "tp" or recs[0]["ring_calls"])):
+            problems.append(f"{name} guided score against the replicated one")
+        summary[name] = {"rel_err": recs[0]["rel_err"], "replicated_s": recs[0]["replicated_s"],
+                         f"{name}_s": recs[0][f"{name}_s"]}
+    summary.update(fsdp_entry_step_s=entry["step_s"], fsdp_entry_peak_gb=entry["peak_gb"],
+                   ranks_wall_s=ranks_wall, phase_s=time.time() - t_phase, card=card)
+    log(json.dumps({"parallel": summary}))
+    if problems:
+        fail("phase 7: " + "; ".join(problems))
+    return launches, max(r["kernel_vs_plain"]["max_abs_err"] for r in ranks)
+
+
 # -------------------------------------------------------------- evaluation
 
 # steps of the nine other modes, the demo and 8d, cut from the configured 35
@@ -1179,7 +1604,7 @@ def main():
                     "card": card}))
     log("library_ms: null -- no single PyTorch call computes gelu(x * inv * mod)")
 
-    launches, rtf = phase_serving(torch, fa, np, batches)
+    launches, rtf, request_b = phase_serving(torch, fa, np, batches)
     log(json.dumps({"inpaint_rtf_request_a": rtf, "card": card}))
     work = os.path.join(here, "experiments", "chip_smoke_training")
     shutil.rmtree(work, ignore_errors=True)
@@ -1188,21 +1613,24 @@ def main():
         launches_44k, timing_44k, serving_44k = phase_serving_44k(torch, fa, np, work, card)
         log(json.dumps({"serving_44k": serving_44k, "card": card}))
         train_launches, train_err = phase_training(torch, fa, np, work, card, shapes)
+        parallel_launches, parallel_err = phase_parallel(torch, fa, np, work, card, request_b)
         test_launches, testing = phase_testing(torch, fa, np, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({"testing": {**testing, "card": card}}))
     log(json.dumps({"launches_by_path": {"serving": launches, "serving_44k": launches_44k,
                                          "training": train_launches,
+                                         "parallel": parallel_launches,
                                          "testing": test_launches}}))
 
     log("== phase 9: kernels")
     kernels = [{"name": "fused_adaln_fwd", "route": "triton",
                 "source": "aid_tpu_torch/ops/fused_adaln.py",
                 "replaces": "aid_tpu/ops/pallas/fused_adaln.py:62",
-                "launches": launches + launches_44k + train_launches + test_launches,
+                "launches": (launches + launches_44k + train_launches + parallel_launches
+                             + test_launches),
                 "max_abs_err": max(worst[("bfloat16", "tanh")], timing["max_abs_err"],
-                                   timing_44k["max_abs_err"], train_err),
+                                   timing_44k["max_abs_err"], train_err, parallel_err),
                 "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                 "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
                 "library_ms": None}]
@@ -1215,4 +1643,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 4 and sys.argv[1] == "--rank":   # a rank of phase 7
+        rank_main(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

@@ -13,7 +13,10 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aid_tpu")
-SOURCES = sorted((ROOT / "aid_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port, chip_smoke.py, and the ranks the parallel tests spawn (they must
+# not start JAX beside the test process's eight fake devices)
+SOURCES = sorted((ROOT / "aid_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                           ROOT / "tests/torch_dist_worker.py"]
 
 
 def _imported(path):
@@ -49,7 +52,9 @@ def test_scan_classifies_names(name, bad):
 def test_new_modules_are_scanned():
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     assert {"aid_tpu_torch/data/audio_io.py", "aid_tpu_torch/data/librispeech.py",
-            "aid_tpu_torch/serving.py"} <= names
+            "aid_tpu_torch/serving.py", "aid_tpu_torch/parallel/mesh.py",
+            "aid_tpu_torch/parallel/ring_attention.py", "aid_tpu_torch/parallel/tp.py",
+            "tests/torch_dist_worker.py"} <= names
 
 
 PROBE = """

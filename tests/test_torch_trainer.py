@@ -286,9 +286,6 @@ def test_checkpoint_listing_and_remove_last(tmp_path):
 
 
 @pytest.mark.parametrize("override,exc", [
-    ("exp.mesh.fsdp=True", NotImplementedError),
-    ("exp.mesh.distributed=True", NotImplementedError),
-    ("exp.mesh.dp=2", NotImplementedError),
     ("network.quant=int8", ValueError),
 ])
 def test_trainer_refuses_unported_modes(override, exc):
@@ -296,6 +293,20 @@ def test_trainer_refuses_unported_modes(override, exc):
     net = tsetup.setup_network(compose(overrides=TINY), device="cpu", trainable=True)
     with pytest.raises(exc):
         tsetup.setup_trainer(ta, network=net, diff_params=tsetup.setup_diff_parameters(ta))
+
+
+@pytest.mark.parametrize("override", ["exp.mesh.fsdp=True", "exp.mesh.distributed=True",
+                                      "exp.mesh.dp=2"])
+def test_mesh_options_without_a_process_group_train_on_one_device(tmp_path, override):
+    """The trainer splits the batch only over a process group (which the
+    entry point starts, tests/test_torch_parallel.py runs one); without one,
+    exp.mesh changes nothing: the same step as without the option."""
+    tmp = str(tmp_path)
+    plain, meshed = _port(tmp, TINY, sub="plain"), _port(tmp, TINY + [override], sub="mesh")
+    assert meshed.mesh is None and meshed.model is meshed.net and meshed.n_dp == 1
+    for tr in (plain, meshed):
+        _steps(tr, np.random.default_rng(0), 2, _numpy_draws)
+    _assert_same_state(meshed, plain)
 
 
 def test_logging_sinks(tmp_path):
