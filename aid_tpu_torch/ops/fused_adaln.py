@@ -238,15 +238,24 @@ def norm_adaln_gelu_plain(x: torch.Tensor, std: torch.Tensor,
     return gelu_plain(x.float() * (inv * mod), gelu).to(x.dtype)
 
 
-def group_std(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+def group_std(x: torch.Tensor, num_groups: int, cp=None) -> torch.Tensor:
     """Bessel-corrected std over (F, T, C/G) per (batch, group), reduced in
     f32 with the one-pass moments max(m2 - m1^2, 0) * n / (n - 1).
-    x [B, F, T, C] -> [B, G] f32."""
+    x [B, F, T, C] -> [B, G] f32.
+
+    ``cp`` (``parallel.cp.ContextParallel``): x is this rank's block of a
+    time axis split over equal blocks; the local moments are averaged over
+    the group by an autograd all-reduce (its backward sums the partial
+    gradients) and n counts the whole axis, as the JAX package's GSPMD
+    reduction does."""
     B, F, T, C = x.shape
     G = num_groups
     xf = x.float().reshape(B, F * T, G, C // G)
     n = F * T * (C // G)
     m1 = xf.mean(dim=(1, 3))
     m2 = xf.square().mean(dim=(1, 3))
+    if cp is not None:
+        m1, m2 = (cp.all_reduce(torch.stack([m1, m2])) / cp.n).unbind(0)
+        n *= cp.n
     var = torch.clamp_min(m2 - m1 * m1, 0.0) * (n / (n - 1.0))
     return var.sqrt()

@@ -12,7 +12,9 @@ block's probabilities from the saved log-sum-exp, sends K/V around the ring
 again with their dK/dV accumulators beside them, and one last hop brings
 every block's dK/dV home. The pieces are all-gathered, so every rank
 returns the whole gradient, as the replicated network around it expects.
-Matmuls and softmax are plain torch ops.
+Matmuls and softmax are plain torch ops. In its local mode (full-score
+context parallelism, ``parallel.cp``) q, k, v and the output stay this
+rank's blocks, and nothing is all-gathered.
 
 ``TimeAttention`` with ``attention_dict.context_parallel`` uses it when a
 mesh with a ``"cp"`` dim is installed (``set_cp_mesh``).
@@ -72,12 +74,17 @@ def _hop(tensors: List[torch.Tensor], group, to: int, frm: int):
 
 
 class _RingAttention(torch.autograd.Function):
+    """One body for both modes: ``local`` False takes whole q, k, v and
+    bias on every rank and returns the whole output (each rank computes its
+    T/n query rows, then all-gathers); ``local`` True takes this rank's
+    block of q, k, v and the bias rows of its queries ([.., T/n, T]) and
+    returns its block of the output, with gradients of the same shapes."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale, group):
+    def forward(ctx, q, k, v, bias, scale, group, local):
         n, r = dist.get_world_size(group), dist.get_rank(group)
-        Tb = q.shape[2] // n
-        rows = slice(r * Tb, (r + 1) * Tb)
+        Tb = q.shape[2] if local else q.shape[2] // n
+        rows = slice(0, Tb) if local else slice(r * Tb, (r + 1) * Tb)
         to = dist.get_global_rank(group, (r - 1) % n)
         frm = dist.get_global_rank(group, (r + 1) % n)
         ql = q[:, :, rows].float()
@@ -103,16 +110,16 @@ class _RingAttention(torch.autograd.Function):
                 kb, vb = nxt()
         out = o / l[..., None]
         ctx.save_for_backward(q, k, v, bias, out, m + torch.log(l))
-        ctx.scale, ctx.group = scale, group
-        return _gather(out.to(q.dtype), group, 2)
+        ctx.scale, ctx.group, ctx.local = scale, group, local
+        return out.to(q.dtype) if local else _gather(out.to(q.dtype), group, 2)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        scale, group = ctx.scale, ctx.group
+        scale, group, local = ctx.scale, ctx.group, ctx.local
         n, r = dist.get_world_size(group), dist.get_rank(group)
-        Tb = q.shape[2] // n
-        rows = slice(r * Tb, (r + 1) * Tb)
+        Tb = q.shape[2] if local else q.shape[2] // n
+        rows = slice(0, Tb) if local else slice(r * Tb, (r + 1) * Tb)
         to = dist.get_global_rank(group, (r - 1) % n)
         frm = dist.get_global_rank(group, (r + 1) % n)
         ql = q[:, :, rows].float()
@@ -144,31 +151,37 @@ class _RingAttention(torch.autograd.Function):
                 dkb, dvb = got
             else:
                 kb, vb, dkb, dvb = got
-        dq = _gather(dq.to(q.dtype), group, 2)
-        dk = _gather(dkb.to(k.dtype), group, 2)
-        dv = _gather(dvb.to(v.dtype), group, 2)
-        db = _gather(dbl.to(bias.dtype), group, 2) if want_db else None
-        return dq, dk, dv, db, None, None
+        grads = [dq.to(q.dtype), dkb.to(k.dtype), dvb.to(v.dtype),
+                 dbl.to(bias.dtype) if want_db else None]
+        if not local:
+            grads = [None if g is None else _gather(g, group, 2) for g in grads]
+        return (*grads, None, None, None)
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group=None,
                    bias: Optional[torch.Tensor] = None,
-                   scale: Optional[float] = None) -> torch.Tensor:
+                   scale: Optional[float] = None, local: bool = False) -> torch.Tensor:
     """softmax(q k^T * scale + bias) v with T split over the ranks of
     ``group`` (the default group when None).
 
     q, k, v: [B, H, T, D], the same on every rank, T divisible by the group
     size; bias: [1 or B, H, T, T] or None; scale defaults to D^-0.5. Returns
     [B, H, T, D] in q's dtype on every rank; differentiable in q, k, v and
-    bias. One rank computes the dense attention."""
+    bias. One rank computes the dense attention.
+
+    ``local``: q, k, v are this rank's [B, H, T/n, D] blocks of a time axis
+    split in rank order, bias the [.., T/n, T] rows of its queries; returns
+    this rank's [B, H, T/n, D] block (full-score context parallelism,
+    ``parallel.cp``)."""
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     n = dist.get_world_size(group) if dist.is_initialized() else 1
     if n == 1:
         return _dense(q, k, v, bias, scale)
-    if q.shape[2] % n:
+    if not local and q.shape[2] % n:
         raise ValueError(f"T={q.shape[2]} is not divisible by the cp size {n}")
-    return _RingAttention.apply(q, k, v, bias, float(scale), group or dist.group.WORLD)
+    return _RingAttention.apply(q, k, v, bias, float(scale), group or dist.group.WORLD,
+                                bool(local))
 
 
 # ---------------------------------------------------------------------------

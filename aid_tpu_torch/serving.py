@@ -21,8 +21,8 @@ of ``aid_tpu/serving.py``).
   * ``shard(mesh)`` serves over a process group's ranks: a ``"dp"`` mesh
     splits each round's windows over the ranks, a ("dp", "tp") mesh also
     splits every conv and dense layer's output channels
-    (``parallel.tp``). A ("dp", "cp") mesh (full-score context parallelism)
-    raises: it waits for the port's next parallelism slice.
+    (``parallel.tp``), a ("dp", "cp") mesh every activation's time axis
+    (full-score context parallelism, ``parallel.cp``).
 """
 from __future__ import annotations
 
@@ -117,19 +117,32 @@ class InpaintingService:
         runs a dp block with every conv and dense layer's output channels
         split over it (lower latency per score). Not with int8 weights.
 
-        ("dp", "cp") mesh: full-score context parallelism; raises
-        NotImplementedError (it waits for the port's next parallelism
-        slice)."""
+        2-D ("dp", "cp") mesh (``parallel.ring_attention.make_cp_mesh``):
+        each cp group runs a dp block with every activation's frame-time
+        axis split over it (``parallel.cp``: halo exchanges around the
+        convs and resamplers, group-norm moments all-reduced, ring
+        attention); weights stay replicated. The network's
+        ``context_parallel`` flags (``network`` and ``attention_dict``) are
+        turned on, with the same parameters, and the mesh is installed
+        (``ring.set_cp_mesh``). A mesh with both tp and cp raises
+        ValueError: pick one latency axis."""
         if not dist.is_initialized():
             raise RuntimeError("shard serves over a process group: call "
                                "aid_tpu_torch.parallel.mesh.init_distributed() first")
         mesh = mesh if mesh is not None else pmesh.make_mesh(device_type=self.device.type)
-        if pmesh.dim_size(mesh, ring.CP_AXIS) > 1:
-            raise NotImplementedError(
-                "serving over a ('dp', 'cp') mesh (full-score context parallelism) waits for "
-                "the port's next parallelism slice; attention_dict.context_parallel with "
-                "parallel.ring_attention.set_cp_mesh splits only the attention")
         n_tp = pmesh.dim_size(mesh, tp.MODEL_AXIS)
+        n_cp = pmesh.dim_size(mesh, ring.CP_AXIS)
+        if n_tp > 1 and n_cp > 1:
+            raise ValueError("serving over a tp x cp mesh is not supported: pick one latency "
+                             "axis (tp splits the kernels, cp the time axis)")
+        if n_cp > 1:
+            self.args.network["context_parallel"] = True
+            if "attention_dict" in self.args.network:
+                self.args.network["attention_dict"]["context_parallel"] = True
+            for m in self.network.modules():      # the U-Net and its attention layers
+                if hasattr(m, "context_parallel"):
+                    m.context_parallel = True
+            ring.set_cp_mesh(mesh)
         if n_tp > 1:
             if str(self.args.network.get("quant", "none")) != "none":
                 raise ValueError("tensor-parallel serving does not compose with int8 "

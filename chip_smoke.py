@@ -14,6 +14,12 @@ Phases (any failure exits non-zero before the last line is printed):
      at the serving batch through edm.denoiser and through one guided score
      (forward + backward), with the kernel and with the plain version
      patched in, in f32 and bf16; 90 kernel launches per denoiser forward;
+  3b. the network options, bf16, batch 1: the flagship with
+     network.use_fencoding and with network.quant=int8, one denoiser call
+     and one guided score each, kernel vs plain; for int8 the prequantized
+     kernels against the dynamic path (bit for bit) and the distance from
+     the bf16 network on the same weights (gated only on being finite:
+     the weights are random);
   4. kernel timing: at every launch shape of one denoiser call the kernel is
      held against the plain version at batch 1 and at the serving batch,
      then both are timed at batch 1 (CUDA graphs of back-to-back launches
@@ -69,6 +75,14 @@ Phases (any failure exits non-zero before the last line is printed):
        d. one f32 guided score with the conv and dense layers split over
           tp=2, and (e) one with attention_dict.context_parallel over a cp=2
           mesh, each against the replicated score: errors and wall times;
+       f. full-score context parallelism (network.context_parallel) over
+          cp=2, f32, batch 1: the denoiser output, the input gradient and
+          one guided score against the replicated ones; wall time, halo
+          exchanges and ring layers per score, the levels sharded;
+       g. ``shard`` over a (dp=1, cp=2) mesh answers phase 5's request (a)
+          at tester.T=4, Schurn=0 (bf16): within phase 3's bf16 tolerance
+          of the one-rank service at the same settings, observed samples
+          bit-exact, RTF;
        every rank's launches go into the kernels line;
   8. evaluation (the third main path) at full flagship width, bf16, on the
      same corpus with a test-split row at 44.1 kHz (resampled to 22.05 kHz
@@ -342,6 +356,74 @@ def phase_denoiser(torch, fa, batch):
     return shapes
 
 
+def phase_options(torch, fa, card):
+    """3b: the flagship with use_fencoding and with int8 quantization (bf16,
+    batch 1), kernel vs plain; int8 prequantized vs dynamic, and against
+    the bf16 network on the same weights."""
+    from aid_tpu_torch.diffusion import edm
+    from aid_tpu_torch.ops import qconv
+    from aid_tpu_torch.tools.profile_denoiser import flagship_case
+    log("== phase 3b: network options at full 22 kHz width, bf16, batch 1: "
+        "use_fencoding, quant=int8")
+    t0 = time.time()
+    case = flagship_case("bfloat16", 1, overrides=["network.use_fencoding=True"])
+    fenc = compare_denoiser(torch, fa, case, BF16_TOL, 90, option="use_fencoding",
+                            compute_dtype="bfloat16")
+    del case
+    case = flagship_case("bfloat16", 1, overrides=["network.quant=int8"])
+    int8 = compare_denoiser(torch, fa, case, BF16_TOL, 90, option="quant=int8",
+                            compute_dtype="bfloat16")
+    net, p, audio, sigma = case.net, case.sampler.p, case.audio, case.sigma
+
+    def run():
+        torch.cuda.synchronize()
+        t1 = time.time()
+        with torch.no_grad():
+            d = edm.denoiser(p, net, audio, sigma)
+        s = case.score(audio, sigma[0])
+        torch.cuda.synchronize()
+        return d, s, time.time() - t1
+
+    n_pre = qconv.prequantize_params(net, torch.bfloat16)
+    d_pre, s_pre, _ = run()
+    d_pre, s_pre, wall_int8 = run()
+    eligible = qconv.prequant_eligible
+    qconv.prequant_eligible = lambda w: False
+    try:
+        d_dyn, s_dyn, _ = run()
+    finally:
+        qconv.prequant_eligible = eligible
+    del case
+    gc.collect()
+    ref = flagship_case("bfloat16", 1)                  # the same seeded weights, bf16
+    with torch.no_grad():
+        d_bf = edm.denoiser(ref.sampler.p, ref.net, ref.audio, ref.sigma)
+    ref.score(ref.audio, ref.sigma[0])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    with torch.no_grad():
+        d_bf = edm.denoiser(ref.sampler.p, ref.net, ref.audio, ref.sigma)
+    s_bf = ref.score(ref.audio, ref.sigma[0])
+    torch.cuda.synchronize()
+    wall_bf16 = time.time() - t1
+    rec = {"check": "int8", "prequantized_kernels": n_pre,
+           "prequantized_equals_dynamic": bool(torch.equal(d_pre, d_dyn)
+                                               and torch.equal(s_pre, s_dyn)),
+           "denoiser_rel_err_vs_bf16": rel(d_pre, d_bf),
+           "guided_score_rel_err_vs_bf16": rel(s_pre, s_bf),
+           "finite": bool(torch.isfinite(d_pre).all() and torch.isfinite(s_pre).all()),
+           "denoiser_plus_score_s": {"int8": wall_int8, "bf16": wall_bf16},
+           "phase_s": time.time() - t0, "card": card}
+    log(json.dumps(rec))
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (rec["prequantized_equals_dynamic"] and rec["finite"] and n_pre > 0
+            and math.isfinite(rec["denoiser_rel_err_vs_bf16"])):
+        fail(f"int8 network: {rec}")
+    return {"fencoding": fenc, "int8": int8, "int8_vs_bf16": rec}
+
+
 def music(np, n, fs, seed):
     """A synthetic piano-like test signal: decaying harmonic notes + noise."""
     rng = np.random.default_rng(seed)
@@ -425,7 +507,7 @@ def phase_serving(torch, fa, np, batches):
         fail(f"kernel launches {launches} != {expected}: the path skipped the kernel")
     if not set(rounds) <= set(batches):
         fail(f"rounds of {sorted(set(rounds))} rows; the kernel was checked at {batches}")
-    return launches, results[0]["rtf"], answers["b_four_25ms_gaps"]
+    return launches, results[0]["rtf"], answers
 
 
 def phase_serving_44k(torch, fa, np, work, card):
@@ -940,8 +1022,11 @@ def phase_training(torch, fa, np, work, card, shapes):
 
 # ------------------------------------------------------- multi-device (7)
 
-PAR_WORLD = 2              # ranks of phase 7b-7e, sharing the one card over gloo
+PAR_WORLD = 2              # ranks of phase 7b-7g, sharing the one card over gloo
 F32_TOL = 1e-4             # f32 (TF32 off) comparisons of phase 7, max|d| / max|ref|
+# 7g's service: the served flagship at 4 deterministic steps
+SERVE_CP = ["tester.T=4", "tester.diff_params.same_as_training=False",
+            "tester.diff_params.Schurn=0.0"]
 
 
 def free_port():
@@ -1092,7 +1177,7 @@ def run_ranks(torch, np, work, inputs, timeout=900):
 
 
 def rank_main(rank, work):
-    """One rank of phase 7b-7e: a process group over gloo (two ranks share
+    """One rank of phase 7b-7g: a process group over gloo (two ranks share
     the card), the kernel against its plain version, then each path with
     the launch count set to 0 before it and read after it."""
     import pickle
@@ -1125,6 +1210,8 @@ def rank_main(rank, work):
     out["train"] = rank_train(torch, fa, np, inp, rank, world, work)
     out["serve"] = rank_serve(torch, fa, np, inp)
     out["tp"], out["cp"] = rank_scores(torch, fa)
+    out["full_cp"] = rank_full_cp(torch, fa)
+    out["serve_cp"] = rank_serve_cp(torch, fa, np, inp)
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -1255,8 +1342,94 @@ def rank_scores(torch, fa):
     return out["tp"], out["cp"]
 
 
-def phase_parallel(torch, fa, np, work, card, request_b):
-    """Phase 7: 7a in this process; 7b-7e on PAR_WORLD ranks sharing the
+def rank_full_cp(torch, fa):
+    """7f: full-score context parallelism over cp=2 (f32, batch 1, TF32
+    off): denoiser output, input gradient and one guided score of the
+    flagship with both cp flags, replicated (no mesh) and split."""
+    from aid_tpu_torch.diffusion import edm
+    from aid_tpu_torch.parallel import cp as cpmod
+    from aid_tpu_torch.parallel import ring_attention as ring
+    from aid_tpu_torch.tools.profile_denoiser import flagship_case
+    case = flagship_case("float32", 1, overrides=[
+        "network.context_parallel=True", "network.attention_dict.context_parallel=True"])
+    p, audio, sigma = case.sampler.p, case.audio, case.sigma
+
+    def run():
+        torch.cuda.synchronize()
+        n0, t0 = fa.launch_count(), time.time()
+        x = audio.clone().requires_grad_(True)
+        d = edm.denoiser(p, case.net, x, sigma)
+        (g,) = torch.autograd.grad((d.float() ** 2).sum(), x)
+        t1 = time.time()
+        s = case.score(audio, sigma[0])
+        torch.cuda.synchronize()
+        return d.detach(), g, s, time.time() - t1, fa.launch_count() - n0
+
+    run()                                        # warm: Triton variants, cuDNN, CQT tables
+    fa.reset_launch_count()                      # 7f's path starts here
+    d0, g0, s0, rep_s, rep_n = run()
+    ring.set_cp_mesh(ring.make_cp_mesh(PAR_WORLD))
+    try:
+        run()
+        cpmod.reset_counts()
+        d1, g1, s1, cp_s, cp_n = run()
+        counts = cpmod.counts()
+    finally:
+        ring.set_cp_mesh(None)
+    rec = {"denoiser_rel_err": rel(d1, d0), "input_grad_rel_err": rel(g1, g0),
+           "guided_score_rel_err": rel(s1, s0), "tol": F32_TOL, "replicated_s": rep_s,
+           "cp_s": cp_s, "launches": fa.launch_count(),   # ... and ends here
+           "launches_per_run": [rep_n, cp_n],
+           # one run: a denoiser forward and backward, then a guided score
+           # (a forward and a backward): twice one score's exchanges
+           "exchanges_per_run": counts,
+           "exchanges_per_score": {k: v / 2 for k, v in counts.items()},
+           "finite": bool(torch.isfinite(s1).all() and torch.isfinite(g1).all())}
+    del case
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def rank_serve_cp(torch, fa, np, inp):
+    """7g: phase 5's request (a) at tester.T=4, Schurn=0 by the one-rank
+    service, then by the same service after shard() over (dp=1, cp=2)."""
+    from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
+    from aid_tpu_torch.parallel import cp as cpmod
+    from aid_tpu_torch.parallel import ring_attention as ring
+    from aid_tpu_torch.serving import InpaintingService
+    svc = InpaintingService.from_config(SERVE_CP)
+    svc.network.init_weights(0, gate_scale=MAIN_SCALE)   # phase 5's weights
+    req = inp["request_a"]
+    ref = svc.inpaint(req["audio"], req["mask"], req["fs"], seed=1)
+    svc.shard(ring.make_cp_mesh(PAR_WORLD, n_dp=1))
+    try:
+        torch.cuda.synchronize()
+        cpmod.reset_counts()
+        fa.reset_launch_count()                  # 7g's path starts here
+        t0 = time.time()
+        got = svc.inpaint(req["audio"], req["mask"], req["fs"], seed=1)
+        wall = time.time() - t0
+        launches = fa.launch_count()             # ... and ends here
+        counts = cpmod.counts()
+    finally:
+        ring.set_cp_mesh(None)
+    obs = req["mask"] > 0.5
+    steps = 2 * svc.sampler.cfg.T - 1
+    rec = {"T": svc.sampler.cfg.T, "wall_s": wall, "rtf": len(req["audio"]) / req["fs"] / wall,
+           "rel_err": rel(torch.from_numpy(got), torch.from_numpy(ref)),
+           "observed_exact": bool(np.array_equal(got[obs], req["audio"][obs])),
+           "finite": bool(np.isfinite(got).all()), "launches": launches,
+           "expected_launches": 90 * steps, "levels_sharded": counts.get("levels_sharded", 0),
+           "levels_replicated": counts.get("levels_replicated", 0)}
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_parallel(torch, fa, np, work, card, request_a, request_b):
+    """Phase 7: 7a in this process; 7b-7g on PAR_WORLD ranks sharing the
     card (gloo), held against one rank."""
     log("== phase 7: multi-device training and serving over torch.distributed")
     corpus = os.path.join(work, "maestro")
@@ -1267,12 +1440,13 @@ def phase_parallel(torch, fa, np, work, card, request_b):
     log(f"== phase 7b reference: the one-rank trainer's 2 steps at batch {TRAIN_BATCH}, f32, "
         "TF32 off")
     batches, draws, ref = one_rank_steps(torch, np, corpus, work)
-    log(f"== phase 7b-7e: {PAR_WORLD} ranks on one card over gloo: dp and fsdp steps, "
-        "shard() over dp on phase 5's request (b), a tp=2 and a cp=2 guided score")
+    log(f"== phase 7b-7g: {PAR_WORLD} ranks on one card over gloo: dp and fsdp steps, "
+        "shard() over dp on phase 5's request (b), a tp=2 and a cp=2 guided score, a "
+        "full-score cp=2 score, shard() over (dp=1, cp=2) on phase 5's request (a) at T=4")
     t0 = time.time()
     ranks = run_ranks(torch, np, os.path.join(work, "ranks"),
                       {"corpus": corpus, "batches": batches, "draws": draws,
-                       "request_b": request_b})
+                       "request_a": request_a, "request_b": request_b})
     ranks_wall = time.time() - t0
     launches, problems = entry["launches"], []
     for r in ranks:
@@ -1337,6 +1511,32 @@ def phase_parallel(torch, fa, np, work, card, request_b):
             problems.append(f"{name} guided score against the replicated one")
         summary[name] = {"rel_err": recs[0]["rel_err"], "replicated_s": recs[0]["replicated_s"],
                          f"{name}_s": recs[0][f"{name}_s"]}
+    recs = [r["full_cp"] for r in ranks]
+    rec = {"check": "full_score_cp_guided_score", **recs[0],
+           "guided_score_rel_err_by_rank": [r["guided_score_rel_err"] for r in recs],
+           "card": card}
+    log(json.dumps(rec))
+    launches += sum(r["launches"] for r in recs)
+    c = recs[0]["exchanges_per_run"]
+    if not (all(r["finite"] and max(r["denoiser_rel_err"], r["input_grad_rel_err"],
+                                    r["guided_score_rel_err"]) <= F32_TOL for r in recs)
+            and all(r["launches_per_run"] == [180, 180] for r in recs)
+            and c.get("levels_sharded") == 2 * 7 and "levels_replicated" not in c
+            and c.get("halo", 0) > 0 and c.get("ring", 0) > 0):
+        problems.append("full-score cp=2 against the replicated score")
+    summary["full_cp"] = {k: recs[0][k] for k in ("guided_score_rel_err", "replicated_s",
+                                                   "cp_s")}
+    serve = [r["serve_cp"] for r in ranks]
+    rec = {"check": "shard_dp1_cp2_serving", **serve[0], "tol": BF16_TOL,
+           "ranks_agree": all(s["rel_err"] == serve[0]["rel_err"] for s in serve),
+           "launches": [s["launches"] for s in serve], "card": card}
+    log(json.dumps(rec))
+    launches += sum(s["launches"] for s in serve)
+    if not (rec["finite"] and rec["observed_exact"] and rec["rel_err"] <= BF16_TOL
+            and rec["ranks_agree"] and rec["levels_replicated"] == 0
+            and all(s["launches"] == s["expected_launches"] for s in serve)):
+        problems.append("(dp=1, cp=2) serving against the one-rank answer")
+    summary["cp_serving_rtf"] = serve[0]["rtf"]
     summary.update(fsdp_entry_step_s=entry["step_s"], fsdp_entry_peak_gb=entry["peak_gb"],
                    ranks_wall_s=ranks_wall, phase_s=time.time() - t_phase, card=card)
     log(json.dumps({"parallel": summary}))
@@ -1604,7 +1804,9 @@ def main():
                     "card": card}))
     log("library_ms: null -- no single PyTorch call computes gelu(x * inv * mod)")
 
-    launches, rtf, request_b = phase_serving(torch, fa, np, batches)
+    phase_options(torch, fa, card)
+    launches, rtf, answers = phase_serving(torch, fa, np, batches)
+    request_b = answers["b_four_25ms_gaps"]
     log(json.dumps({"inpaint_rtf_request_a": rtf, "card": card}))
     work = os.path.join(here, "experiments", "chip_smoke_training")
     shutil.rmtree(work, ignore_errors=True)
@@ -1613,7 +1815,8 @@ def main():
         launches_44k, timing_44k, serving_44k = phase_serving_44k(torch, fa, np, work, card)
         log(json.dumps({"serving_44k": serving_44k, "card": card}))
         train_launches, train_err = phase_training(torch, fa, np, work, card, shapes)
-        parallel_launches, parallel_err = phase_parallel(torch, fa, np, work, card, request_b)
+        parallel_launches, parallel_err = phase_parallel(
+            torch, fa, np, work, card, answers["a_centre_gap_1500ms"], request_b)
         test_launches, testing = phase_testing(torch, fa, np, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -514,16 +514,17 @@ def test_shard_dp_tp_serves_the_one_rank_answer(attention_runs):
 
 
 def test_shard_needs_a_group_and_full_score_cp_raises():
-    """Without a process group shard raises; network.context_parallel
-    (full-score cp) still raises and names the next slice. (A ("dp", "cp")
-    mesh and autotune_max_batch after shard raise in the 4-rank group.)"""
+    """Without a process group shard raises, also for a network built with
+    network.context_parallel (full-score cp, ported: tests/test_torch_cp.py),
+    whose flag without a cp mesh changes nothing. (A tp x cp mesh and
+    autotune_max_batch after shard raise in the 4-rank group.)"""
     svc = InpaintingService(args=compose(overrides=SERVE), network=None, sampler=None)
     with pytest.raises(RuntimeError, match="process group"):
         svc.shard()
-    with pytest.raises(NotImplementedError, match="next parallelism slice"):
-        tunet.build_unet(tu._net_args(context_parallel=True))
+    assert tunet.build_unet(tu._net_args(context_parallel=True)).context_parallel
+    assert pring.get_cp_mesh() is None
 
 
 def test_refusals_under_a_group(attention_runs):
     for r in attention_runs["dp_tp"]:
-        assert r["refused"] == {"cp_mesh": "NotImplementedError", "autotune": "RuntimeError"}
+        assert r["refused"] == {"tp_cp_mesh": "ValueError", "autotune": "RuntimeError"}

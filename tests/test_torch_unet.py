@@ -221,13 +221,23 @@ def test_remat_gradients_equal_no_remat(policy):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("key,value,exc", [("quant", "int8", NotImplementedError),
-                                           ("context_parallel", True, NotImplementedError),
-                                           ("remat_policy", "dots", ValueError),
-                                           ("use_fencoding", True, NotImplementedError)])
+@pytest.mark.parametrize("key,value,exc", [("remat_policy", "dots", ValueError),
+                                           ("quant", "int4", ValueError)])
 def test_unported_network_options_raise(key, value, exc):
+    """Values no package implements raise. (``quant: int8``,
+    ``context_parallel`` and ``use_fencoding`` are ported:
+    tests/test_torch_qconv.py and tests/test_torch_cp.py.)"""
     with pytest.raises(exc):
         tunet.build_unet(_net_args(**{key: value}))
+
+
+@pytest.mark.parametrize("key,value,attr", [("quant", "int8", "quant"),
+                                            ("context_parallel", True, "context_parallel")])
+def test_ported_network_options_build(key, value, attr):
+    """The JAX module's options build: the flag reaches the module (without
+    an installed cp mesh ``context_parallel`` changes nothing, as in JAX)."""
+    net = tunet.build_unet(_net_args(**{key: value}))
+    assert getattr(net, attr) == value
 
 
 def test_tpu_layout_keys_are_ignored():

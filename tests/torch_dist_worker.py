@@ -223,23 +223,152 @@ def _serve(s, mesh):
 
 def job_serve_dp_tp(inp, rank, world, workdir):
     """A request served on a dp=2 x tp=2 mesh; what ``shard`` refuses: a
-    ("dp", "cp") mesh, and autotune_max_batch afterwards."""
+    tp x cp mesh, and autotune_max_batch afterwards."""
+    from aid_tpu_torch.parallel import mesh as pmesh
     from aid_tpu_torch.parallel import ring_attention as ring
     from aid_tpu_torch.parallel import tp
     from aid_tpu_torch.serving import InpaintingService
     served = _serve(inp["serve"], tp.make_tp_mesh(2, n_dp=world // 2, device_type="cpu"))
     refused = {}
     svc = InpaintingService.from_config(inp["serve"]["overrides"], device="cpu")
-    for name, call in (("cp_mesh", lambda: svc.shard(ring.make_cp_mesh(2, world // 2, "cpu"))),
+    tp_cp = ("tp", ring.CP_AXIS)
+    for name, call in (("tp_cp_mesh", lambda: svc.shard(pmesh.make_grid(2, world // 2, tp_cp,
+                                                                         "cpu"))),
                        ("autotune", lambda: svc.shard().autotune_max_batch(limit_bytes=2 ** 30))):
         try:
             call()
-        except (NotImplementedError, RuntimeError) as e:
+        except (ValueError, RuntimeError) as e:
             refused[name] = type(e).__name__
     return {"served": served, "refused": refused}
 
 
-JOBS = {"train": job_train, "attention": job_attention, "serve_dp_tp": job_serve_dp_tp}
+# ------------------------------------------- full-score context parallelism
+
+
+def _through_cp(fn, x, w, cp):
+    """fn on this rank's time block of x (sharded by ``cp.shard``), its
+    output gathered, and the gradient of sum(w * output) w.r.t. the whole
+    x."""
+    xs = torch.from_numpy(x).requires_grad_(True)
+    y = cp.gather(fn(cp.shard(xs)))
+    (g,) = torch.autograd.grad((y * torch.from_numpy(w)).sum(), xs)
+    return {"y": y.detach().numpy(), "dx": g.numpy()}
+
+
+def _unsharded(fn, x, w):
+    xs = torch.from_numpy(x).requires_grad_(True)
+    y = fn(xs)
+    (g,) = torch.autograd.grad((y * torch.from_numpy(w)).sum(), xs)
+    return {"y": y.detach().numpy(), "dx": g.numpy()}
+
+
+def _cp_pieces(inp, cp):
+    """The halo conv, the sharded resampler (down and up), the group std
+    and the local-mode ring, each with its unsharded version."""
+    from aid_tpu_torch.models import unet_cqt as tunet
+    from aid_tpu_torch.ops import fused_adaln
+    from aid_tpu_torch.parallel import ring_attention as ring
+    out = {}
+    conv = tunet.Conv2dFT(6, 5, (5, 3), dilation=(inp["dilation"], 1))
+    conv.weight.data = torch.from_numpy(inp["conv_w"])
+    conv.requires_grad_(False)
+    x, w = inp["x"], inp["w_x"]
+    out["conv"] = (_through_cp(lambda a: conv(a, cp), x, inp["w_conv"], cp),
+                   _unsharded(conv, x, inp["w_conv"]))
+    for up in (False, True):
+        wr = inp["w_up" if up else "w_down"]
+        out[f"resample_up{up}"] = (
+            _through_cp(lambda a: tunet.resample_time(a, up, cp=cp), x, wr, cp),
+            _unsharded(lambda a: tunet.resample_time(a, up), x, wr))
+    # the group norm as the model uses it: each rank normalises its own
+    # rows, so the gradient reaching the moments is that rank's partial one
+    def norm(a, cp=None):
+        B, F_, T, C = a.shape
+        std = fused_adaln.group_std(a, 2, cp)
+        return (a.reshape(B, F_, T, 2, C // 2) / std[:, None, None, :, None]).reshape(a.shape)
+    out["group_std"] = (_through_cp(lambda a: norm(a, cp), x, w, cp),
+                        _unsharded(norm, x, w))
+    r = inp["ring"]
+    q, k, v, bias = (torch.from_numpy(r[n]).requires_grad_(True) for n in ("q", "k", "v", "bias"))
+    Tl = q.shape[2] // cp.n
+    rows = bias[:, :, cp.rank * Tl:(cp.rank + 1) * Tl]
+    ql, kl, vl = (cp.shard(t) for t in (q, k, v))      # [B, H, T, D]: T is dim 2
+    y = cp.gather(cp.ring_attention(ql, kl, vl, rows, 0.25))
+    torch.sin(y).sum().backward()
+    out["ring"] = {"y": y.detach().numpy(), "dq": q.grad.numpy(), "dk": k.grad.numpy(),
+                   "dv": v.grad.numpy(), "dbias": bias.grad.numpy(),
+                   "dense": ring._dense(q.detach(), k.detach(), v.detach(), bias.detach(),
+                                        0.25).numpy()}
+    return out
+
+
+def _cp_service(s, network_overrides=()):
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.serving import InpaintingService
+    from aid_tpu_torch.utils.config import compose
+    args = compose(overrides=list(s["overrides"]) + list(network_overrides))
+    net = tsetup.setup_network(args, device="cpu", state_dict=s["state_dict"])
+    return InpaintingService(args=args, network=net, max_batch=s["max_batch"],
+                             sampler=tsetup.setup_sampler(args, net,
+                                                          tsetup.setup_diff_parameters(args)))
+
+
+def job_cp(inp, rank, world, workdir):
+    """Full-score context parallelism over every rank as one cp group: the
+    pieces, then the tiny U-Net's forward and input gradient with every
+    level split (the exchanges counted); on 4 ranks a request served over
+    dp=2 x cp=2 with the injected noise, and the tp x cp refusal."""
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.parallel import cp as cpmod
+    from aid_tpu_torch.parallel import mesh as pmesh
+    from aid_tpu_torch.parallel import ring_attention as ring
+    from aid_tpu_torch.sampling import sampler as smod
+    from aid_tpu_torch.utils.config import compose
+    cp = cpmod.ContextParallel(dist.group.WORLD)
+    out = {"pieces": _cp_pieces(inp["pieces"], cp)}
+
+    f = inp["score"]
+
+    def score(extra=(), mesh=True):
+        net = tsetup.setup_network(compose(overrides=list(f["overrides"]) + list(extra)),
+                                   device="cpu", state_dict=f["state_dict"])
+        ring.set_cp_mesh(ring.make_cp_mesh(world, device_type="cpu") if mesh else None)
+        try:
+            cpmod.reset_counts()
+            x = torch.from_numpy(f["audio"]).requires_grad_(True)
+            y = net(x, torch.from_numpy(f["cnoise"]))
+            (g,) = torch.autograd.grad((y * y).sum(), x)
+            return {"y": y.detach().numpy(), "dx": g.numpy(), "counts": cpmod.counts()}
+        finally:
+            ring.set_cp_mesh(None)
+
+    out["score"] = score()
+    out["score_int8"] = (score(["network.quant=int8"]), score(["network.quant=int8"], False))
+
+    if world == 4:
+        s = inp["serve"]
+        svc = _cp_service(s)
+        svc.shard(ring.make_cp_mesh(2, n_dp=2, device_type="cpu"))
+        prior, churn = torch.from_numpy(s["prior"]), torch.from_numpy(s["churn"])
+        smod.draw_noise = lambda shape, T, generator=None, device=None: (prior, churn)
+        flags = [m.context_parallel for m in svc.network.modules()
+                 if hasattr(m, "context_parallel")]
+        cpmod.reset_counts()
+        out["serve_dp_cp"] = {"out": svc.inpaint(s["audio"], s["mask"], s["fs"], seed=3),
+                              "flags": flags, "counts": cpmod.counts(),
+                              "max_batch": svc.max_batch,
+                              "args_flag": svc.args.network["context_parallel"]}
+        ring.set_cp_mesh(None)
+        try:
+            _cp_service(s).shard(pmesh.make_grid(2, 2, ("tp", ring.CP_AXIS), "cpu"))
+            out["tp_cp"] = "served"
+        except ValueError as e:
+            out["tp_cp"] = str(e)
+    return out
+
+
+JOBS = {"train": job_train, "attention": job_attention, "serve_dp_tp": job_serve_dp_tp,
+        "cp": job_cp}
 
 
 def main():
