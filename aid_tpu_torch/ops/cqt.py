@@ -8,6 +8,12 @@ coefficient normalisation, and the same network-facing operators:
     bwd(list)       -> real [..., Ls] (caller crops to T)
     apply_hpf_DC(x) -> x band-limited to the octave bands (DC + Nyquist removed)
 
+and the perfect-reconstruction pair with the DC and Nyquist bands,
+``fwd_complete`` / ``bwd_complete`` (one full FFT, a gather of every band's
+support with its analysis window and an ifft per band group; synthesis sums
+each band's fft times its synthesis window into the full spectrum with
+``index_add``, adds the Hermitian mirror and takes one inverse FFT).
+
 Analysis is one rfft, then per octave the contiguous band slices of the half
 spectrum (one gather of length-M windows), times the analysis window, an
 ifft and a static phase ramp. Synthesis is per octave fft, times the
@@ -134,7 +140,7 @@ class CQT:
         for i, bd in enumerate(all_bands):
             s = bd.M / math.sqrt(Ls * float(np.sum(bd.win ** 2)))
             all_bands[i] = dataclasses.replace(bd, win=bd.win * s)
-        bands = all_bands[1:-1]
+        dc, bands, nyq = all_bands[0], all_bands[1:-1], all_bands[-1]
 
         # frame diagonal over the full grid (direct + mirrored contributions)
         D = np.zeros(Ls)
@@ -144,6 +150,25 @@ class CQT:
             D[(-pos) % Ls] += bd.win ** 2
         if not np.all(D[: Ls // 2 + 1] > 1e-10):
             raise ValueError("frame not invertible: uncovered frequencies")
+
+        # full-spectrum gather positions and analysis/synthesis windows of
+        # each band group (the octaves, DC, Nyquist), slot = offset mod M
+        def pack(group: Sequence[_Band], M: int):
+            idx = np.zeros((len(group), M), np.int64)
+            wa = np.zeros((len(group), M), np.float32)
+            ws = np.zeros((len(group), M), np.float32)
+            for b, bd in enumerate(group):
+                slots = bd.offsets % M
+                if len(np.unique(slots)) != len(slots):
+                    raise ValueError("painless condition violated (fold)")
+                pos = (bd.center + bd.offsets) % Ls
+                idx[b, slots] = pos
+                wa[b, slots] = bd.win
+                ws[b, slots] = bd.win / D[pos]
+            return idx, wa, ws
+
+        self._full = ([pack(bands[j * B:(j + 1) * B], self.M[j]) for j in range(O)]
+                      + [pack([dc], dc.M), pack([nyq], nyq.M)])
 
         # per octave: band starts in the half spectrum, analysis/synthesis
         # windows over each band's M slots, and the slot-roll phase ramp
@@ -201,7 +226,9 @@ class CQT:
                     phase=torch.from_numpy(o["phase"]).to(device),
                     phase_c=torch.from_numpy(np.conj(o["phase"])).to(device),
                     bins=torch.from_numpy(o["bins"].reshape(-1)).to(device))
-                    for o in self._oct])
+                    for o in self._oct],
+                full=[tuple(torch.from_numpy(a).to(device) for a in grp)
+                      for grp in self._full])
             self._dev[device] = t
         return t
 
@@ -244,6 +271,32 @@ class CQT:
                 half = U.new_zeros(*lead, self._H + 1)
             half = half.index_add(-1, o["bins"], U)
         return torch.fft.irfft(half[..., : self._H], n=self.Ls)
+
+    def fwd_complete(self, x: torch.Tensor):
+        """Analysis including the DC and Nyquist bands: (dc [..., 1, M_dc],
+        list low->high octave of [..., bins, M_j], nyq [..., 1, M_nyq]),
+        complex64."""
+        full = self._tables(x.device)["full"]
+        X = torch.fft.fft(self._pad(x).float())
+        out = [torch.fft.ifft(X[..., idx] * wa, dim=-1) for idx, wa, _ in full]
+        return out[-2], out[:-2], out[-1]
+
+    def bwd_complete(self, dc: torch.Tensor, coeffs: Sequence[torch.Tensor],
+                     nyq: torch.Tensor) -> torch.Tensor:
+        """Synthesis from every band (the inverse of ``fwd_complete``) ->
+        real [..., Ls]."""
+        full = self._tables(coeffs[0].device)["full"]
+        lead = coeffs[0].shape[:-2]
+        S = torch.zeros(*lead, self.Ls, dtype=torch.complex64, device=coeffs[0].device)
+        for c, (idx, _, ws) in zip([*coeffs, dc, nyq], full):
+            U = torch.fft.fft(c.to(torch.complex64), dim=-1) * ws
+            S.index_add_(-1, idx.reshape(-1), U.reshape(*lead, -1))
+        Z = S + torch.conj(S[..., (-torch.arange(self.Ls, device=S.device)) % self.Ls])
+        return torch.fft.ifft(Z).real
+
+    @property
+    def octave_lengths(self) -> List[int]:
+        return list(self.M)
 
     def apply_hpf_DC(self, x: torch.Tensor) -> torch.Tensor:
         """Remove DC-band and Nyquist-band content: rfft -> mask -> irfft,

@@ -229,9 +229,9 @@ class Trainer:
         self.gnorm_ema = torch.zeros((), dtype=torch.float32, device=self.device)
         self.applied = torch.zeros((), dtype=torch.int64, device=self.device)
         self.it = 0
-        if bool(self.args.logging.get("print_model_summary", False)):
-            n = sum(int(np.prod(s)) for s in self.shapes)
-            print(f"[trainer] {n} parameters in {len(self.shapes)} tensors", flush=True)
+        if self.lead and bool(self.args.logging.get("print_model_summary", False)):
+            from aid_tpu_torch.utils.summary import print_model_summary
+            print_model_summary(zip(self.names, self.shapes))   # full shapes under FSDP
 
     def state_dict(self) -> Optional[Dict]:
         """The checkpoint payload (``utils/checkpoint.py`` layout), full
@@ -503,9 +503,12 @@ class Trainer:
         try:
             x = self.tester.sample_unconditional_ema(dict(zip(self.names, ema)))
             d = os.path.join(self.model_dir, "heavy_logging", f"it_{self.it}")
+            clips = {}
             for i, xi in enumerate(x):
                 fp = logu.write_audio_file(xi, self.target_fs, f"uncond_{i}", d)
                 logu.plot_spectrogram_from_raw_audio(xi, self.target_fs, fp + ".png")
+                clips[f"demo/uncond_{i}"] = (xi, self.target_fs)
+            self._log_wandb_audio(clips, self.it)
             self._demo_failures = 0
         except Exception:  # the boundary: a demo must never stop training
             print(f"[heavy_logging] demo at iteration {self.it} skipped:", flush=True)
@@ -514,6 +517,34 @@ class Trainer:
             if self._demo_failures >= 2:
                 print("[heavy_logging] 2 consecutive failures: demos off for the rest of "
                       "this process", flush=True)
+
+    def _log_wandb_audio(self, named_clips, it: int) -> None:
+        """Demo clips ``{name: (audio, fs)}`` to the wandb run; nothing
+        without one. A failed upload is printed, never raised."""
+        if self.wandb._run is None or not named_clips:
+            return
+        try:
+            import wandb
+            self.wandb.log({k: wandb.Audio(np.asarray(a), sample_rate=fs)
+                            for k, (a, fs) in named_clips.items()}, step=it)
+        except Exception as e:  # logging must never stop training
+            print(f"[wandb] demo audio not logged: {e!r}", flush=True)
+
+    def _upload_profile_artifact(self) -> None:
+        """The profiler's trace directory as a wandb artifact (the reference
+        uploads its torch-profiler trace the same way); nothing without a
+        run. A failed upload is printed, never raised."""
+        if self.wandb._run is None:
+            return
+        try:
+            import wandb
+            art = wandb.Artifact(f"profile-{self.exp.get('exp_name', 'run')}", type="profile")
+            art.add_dir(self.profile_dir)
+            self.wandb._run.log_artifact(art)
+            print(f"[profile] trace uploaded as a wandb artifact ({self.profile_dir})",
+                  flush=True)
+        except Exception as e:  # logging must never stop training
+            print(f"[profile] artifact upload skipped: {e!r}", flush=True)
 
     # ------------------------------------------------------------------ loop
 
@@ -627,6 +658,7 @@ class Trainer:
                 prof.export_chrome_trace(trace)
                 print(f"[profile] {trace}", flush=True)
                 prof = None
+                self._upload_profile_artifact()
             if self.lead and (it % self.log_interval == 0 or it == 1):
                 scalars = self.easy_logging(metrics)
                 dt = time.time() - t0

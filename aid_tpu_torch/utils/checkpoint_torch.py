@@ -10,10 +10,15 @@ Locate order, as the JAX package's ``utils/checkpoint_torch.py``: ``ema``,
 then ``network``, then ``state_dict``, then a ``model`` + ``ema_weights``
 zip (EMA values under the model's names), then the payload itself with any
 ``diffusion.`` prefix stripped.
+
+Writing goes the other way: ``export_checkpoint`` saves a module (and an
+EMA) in the reference trainer's layout ``{"it", "network", "ema",
+"optimizer": {}}``, f32 CPU tensors under the state-dict names, which the
+upstream code and the JAX package's ``load_reference_checkpoint`` read.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
@@ -64,3 +69,41 @@ def load_reference_checkpoint(path: str, module: torch.nn.Module) -> None:
     objects), so load only checkpoints from a trusted source."""
     load_into(module, find_state_dict(torch.load(path, map_location="cpu",
                                                  weights_only=False)))
+
+
+def _f32_cpu(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).detach().to("cpu", torch.float32).clone()
+            for k, v in sd.items()}
+
+
+def export_state_dict(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The module's weights as f32 CPU tensors under the reference's names
+    (the port's own state-dict names)."""
+    return _f32_cpu(module.state_dict())
+
+
+def export_checkpoint(path: str, module: torch.nn.Module, it: int = 0,
+                      ema: Optional[Mapping[str, torch.Tensor]] = None) -> str:
+    """Write a reference-layout ``.pt``: the module's weights as
+    ``network``, ``ema`` (a state dict under the same names; the network's
+    weights when None) as ``ema``, and an empty optimizer."""
+    net = export_state_dict(module)
+    out = _f32_cpu(ema) if ema is not None else net
+    if set(out) != set(net):
+        raise KeyError("the EMA's names differ from the module's: "
+                       f"{sorted(set(out) ^ set(net))[:8]}")
+    torch.save({"it": int(it), "network": net, "ema": out, "optimizer": {}}, path)
+    return path
+
+
+def export_checkpoint_from(path_in: str, path_out: str) -> str:
+    """Turn a training checkpoint (the port's ``{exp}-{it}.pt`` or a JAX
+    stream ``{exp}-{it}.ckpt``, as ``utils.checkpoint.load`` reads them)
+    into a reference-layout ``.pt`` with its iteration, network and EMA."""
+    from aid_tpu_torch.utils import checkpoint as ckpt
+    payload = ckpt.load(path_in)
+    net = _f32_cpu(payload["network"])
+    ema = _f32_cpu(payload.get("ema", payload["network"]))
+    torch.save({"it": int(payload.get("it", 0)), "network": net, "ema": ema,
+                "optimizer": {}}, path_out)
+    return path_out

@@ -8,8 +8,8 @@ A stream checkpoint is a directory:
 
 ``load`` rebuilds the tree as plain containers: dicts, lists (optax's
 NamedTuple states arrive as field-name dicts), numpy arrays and scalars.
-Older JAX checkpoints written by orbax have no manifest; converting them
-needs the JAX package.
+Older JAX checkpoints written by orbax have no manifest; the JAX package
+converts them to this format (``python scripts/orbax_to_stream.py IN OUT``).
 """
 from __future__ import annotations
 
@@ -30,8 +30,9 @@ def load(path: str):
     path = os.path.abspath(path)
     if not is_stream(path):
         raise ValueError(
-            f"{path!r} is not a stream checkpoint (no {MANIFEST}); orbax checkpoints "
-            "load only through the JAX package (aid_tpu.utils.ckpt_io.load)")
+            f"{path!r} is not a stream checkpoint (no {MANIFEST}); convert an orbax "
+            "checkpoint with the JAX package first: python scripts/orbax_to_stream.py "
+            f"{path} OUT.ckpt")
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)
 

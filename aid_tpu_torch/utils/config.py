@@ -10,6 +10,7 @@ and ``None`` round-trip.
 """
 from __future__ import annotations
 
+import copy
 import os
 import re
 import sys
@@ -130,3 +131,19 @@ def _deep_merge(base: dict, over: dict) -> dict:
         else:
             out[k] = v
     return out
+
+
+def save_config(args: EasyDict, path: str) -> None:
+    """Write a composed config tree as YAML."""
+    with open(path, "w") as f:
+        yaml.safe_dump(args.to_dict(), f, sort_keys=False)
+
+
+def load_saved_config(path: str) -> EasyDict:
+    """A config tree written by ``save_config``."""
+    return EasyDict(_load_yaml(path))
+
+
+def merge_config(args: EasyDict, over: dict) -> EasyDict:
+    """``args`` with ``over`` deep-merged on top (``over`` wins)."""
+    return EasyDict(_deep_merge(args.to_dict(), copy.deepcopy(over)))

@@ -30,6 +30,17 @@ class EasyDict(dict):
     def __delattr__(self, name: str) -> None:
         del self[name]
 
+    def to_dict(self) -> dict:
+        """A plain nested dict (lists in place of tuples), as YAML writes it."""
+        def unwrap(v: Any) -> Any:
+            if isinstance(v, EasyDict):
+                return {k: unwrap(x) for k, x in v.items()}
+            if isinstance(v, (list, tuple)):
+                return [unwrap(x) for x in v]
+            return v
+
+        return unwrap(self)
+
 
 def _wrap(v: Any) -> Any:
     if isinstance(v, EasyDict):

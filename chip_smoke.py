@@ -103,7 +103,35 @@ Phases (any failure exits non-zero before the last line is printed):
        d. a reference-layout ``.pt`` written from a seeded network loads back
           exactly, and ``test_inpainting`` with the plain version patched in
           agrees with the kernel run within phase 3's bf16 tolerance;
-  9. the ``kernels`` JSON line, then the device JSON line.
+  10. the port learns, and the user tools (after phase 8, in its work
+     directory), bf16 serving at full flagship width unless said:
+       a. the learning gate: ``scripts/e2e_smoke_torch.run`` trains the tiny
+          CQTDiff+ on synthetic chords (SMOKE_L 16384, 400 steps at batch 8,
+          f32 with TF32 convs) and inpaints a 50 ms gap with its EMA before
+          and after (T=25, order 2, xi=0.25, bf16); it must lift the gap SNR
+          by >= 4.0 dB and cut the gap LSD to <= 0.95 of the untrained
+          net's (the JAX package's pinned gates); the trained EMA sampled
+          with the plain version within phase 3's bf16 tolerance; the
+          kernel against the plain version at every tiny-net launch shape
+          (f32 at batch 8, bf16 at batch 1); launches per step and run;
+       b. ``scripts/make_synth_corpus_torch.py`` writes two 19 s test files;
+       c. ``scripts/eval_checkpoints_torch.py`` on phase 6e's model
+          directory (its step-2 and step-4 checkpoints), 2 clips:
+          eval_ledger.json, every SNR, LSD and FAD finite, the two
+          checkpoints' EMA weights different;
+       d. ``scripts/eval_gap_sweep_torch.py`` on the step-4 checkpoint:
+          four gap lengths, finite numbers;
+       e. ``examples/demo_inpainting_torch.py`` in its own process, with the
+          step-4 checkpoint and a 1500 ms gap (the written files' observed
+          samples bit-exact), then with ``--spectrogram``;
+       f. ``scripts/serve_bench_torch.py`` with SERVE_REPS 1: its three
+          rows with the card;
+       g. ``export_checkpoint_from`` on the step-4 checkpoint: the reference
+          ``.pt`` loads back bit-equal; ``parity_vs_reference_torch``
+          exports its f32 denoiser (finite) and passes against itself;
+     10c-10g run tester.T=8 (cut from 35 for the time budget);
+  9. the ``kernels`` JSON line (phase 10's launches and errors included),
+     then the device JSON line.
 
 f32 comparisons run with TF32 off (torch.backends.cuda.matmul.allow_tf32
 and torch.backends.cudnn.allow_tf32 both False).
@@ -128,6 +156,7 @@ BF16_TOL = 2e-2            # phase 3's bf16 tolerance, max|d| / max|ref|
 # the 44.1 kHz MusicNet flagship (phase 5b)
 NET44 = ["network=cqtdiff_plus_44k", "exp=musicnet44k_4s"]
 LAUNCHES_44K = 111         # fused-kernel launches per 44 kHz denoiser call
+FLAGSHIP_LAUNCHES = 90     # ... per 22 kHz denoiser call
 
 
 def log(*a):
@@ -255,6 +284,25 @@ def launch_shapes(torch, net, audio, cn):
     return shapes
 
 
+def check_launch_shapes(torch, fa, shapes, gelu, dt, batches, gen):
+    """The kernel against the plain version at every launch shape (R, C) of
+    ``shapes`` and batch of ``batches``, within one bf16 ulp of the plain
+    result (in f32 as in bf16, as phase 4 holds them). Returns the largest
+    absolute error."""
+    err = 0.0
+    for (R, C) in sorted(shapes):
+        for B in batches:
+            x = torch.randn((B, R, C), generator=gen, device="cuda").to(dt)
+            inv = torch.rand(B, C, generator=gen, device="cuda") + 0.5
+            mod = torch.rand(B, C, generator=gen, device="cuda") + 0.5
+            with torch.no_grad():
+                y, yp = fa._fused_cuda(x, inv, mod, gelu), fa.fused_plain(x, inv, mod, gelu)
+            if not bf16_ulp_ok(y, yp):
+                fail(f"kernel disagrees with plain at launch shape {(B, R, C)}, {dt}")
+            err = max(err, (y.float() - yp.float()).abs().max().item())
+    return err
+
+
 def time_kernel(torch, fa, shapes, gelu, dt, batches, time_batch=1):
     """At every launch shape: the kernel held against the plain version (one
     bf16 ulp) at each batch in ``batches``; then kernel and plain device
@@ -264,21 +312,14 @@ def time_kernel(torch, fa, shapes, gelu, dt, batches, time_batch=1):
     when it is read again."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
-    ms = plain_ms = bytes_ = ops = err = 0.0
+    err = check_launch_shapes(torch, fa, shapes, gelu, dt, batches, gen)
+    ms = plain_ms = bytes_ = ops = 0.0
     for (R, C), n in sorted(shapes.items()):
-        for B in batches:
-            x = torch.randn((B, R, C), generator=gen, device="cuda").to(dt)
-            inv = torch.rand(B, C, generator=gen, device="cuda") + 0.5
-            mod = torch.rand(B, C, generator=gen, device="cuda") + 0.5
-            with torch.no_grad():
-                y, yp = fa._fused_cuda(x, inv, mod, gelu), fa.fused_plain(x, inv, mod, gelu)
-            if not bf16_ulp_ok(y, yp):
-                fail(f"kernel disagrees with plain at launch shape {(B, R, C)}")
-            err = max(err, (y.float() - yp.float()).abs().max().item())
         Bt = time_batch
-        step = 2 * Bt * R * C * x.element_size()         # one read, one write
-        sets = [(torch.randn((Bt, R, C), generator=gen, device="cuda").to(dt),
-                 inv[:Bt].contiguous(), mod[:Bt].contiguous(), gelu)
+        inv = torch.rand(Bt, C, generator=gen, device="cuda") + 0.5
+        mod = torch.rand(Bt, C, generator=gen, device="cuda") + 0.5
+        step = 2 * Bt * R * C * torch.finfo(dt).bits // 8   # one read, one write
+        sets = [(torch.randn((Bt, R, C), generator=gen, device="cuda").to(dt), inv, mod, gelu)
                 for _ in range(max(2, math.ceil(3 * l2 / step)))]
         with torch.no_grad():
             k = graph_ms(torch, fa._fused_cuda, sets)
@@ -1767,6 +1808,243 @@ def phase_testing_plain(torch, fa, np, corpus, work):
     return {"kernel_vs_plain_rel_err": rel}
 
 
+# ------------------------------------------------------- user tools (10)
+
+# steps of 10c-10g's samplers, cut from the configured 35 to keep the script
+# within its time budget; 10a runs the learning gate's own T=25
+TOOLS_T = 8
+TOOLS_OV = [f"tester.T={TOOLS_T}"]
+
+
+def load_script(path):
+    """A script of the checkout (scripts/*_torch.py, the demo) as a module."""
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    name = os.path.splitext(os.path.basename(path))[0]
+    sys.path.insert(0, os.path.join(here, os.path.dirname(path)))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(here, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def finite(*xs):
+    return all(math.isfinite(float(v)) for v in xs)
+
+
+@contextlib.contextmanager
+def counted(fa, into, key):
+    """Kernel launches of a main-path run of phase 10 into ``into[key]``."""
+    import torch
+    torch.cuda.synchronize()
+    fa.reset_launch_count()
+    yield
+    torch.cuda.synchronize()
+    into[key] = fa.launch_count()
+
+
+def phase_learning(torch, fa, np, work, card, launches):
+    """10a: the learning gate at the JAX smoke's defaults, then the trained
+    EMA sampled with the plain version, and the kernel at every tiny-net
+    launch shape."""
+    from aid_tpu_torch import setup as tsetup
+    e2e = load_script("scripts/e2e_smoke_torch.py")
+    cfg = e2e.config_from_env({"SMOKE_DTYPE": "bfloat16"})
+    cfg["model_dir"] = os.path.join(work, "smoke")
+    log(f"== phase 10a: the learning gate, scripts/e2e_smoke_torch.run: SMOKE_L {cfg['L']}, "
+        f"{cfg['its']} steps at batch {e2e.BATCH} in f32 (TF32 convs, the training default), "
+        f"sampling T=25 order 2 xi=0.25 in {cfg['dtype']}")
+    torch.backends.cudnn.allow_tf32 = True       # as a user runs the script (README, TF32)
+    try:
+        with counted(fa, launches, "learning"):
+            res = e2e.run(cfg, device="cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    dev = tsetup.resolve_device("cuda")
+    with plain_forced(fa):
+        fa.reset_launch_count()
+        rec_plain = e2e.sample(res["args"], res["ediff"], res["ema"], res["y_masked"],
+                               res["mask"], dev)
+        plain_launches = fa.launch_count()
+    rel_plain = float(np.abs(res["rec"] - rec_plain).max() / np.abs(rec_plain).max())
+    net = tsetup.setup_network(res["args"], device=dev, state_dict=res["ema"])
+    per_fwd = launches_per_forward(net)
+    from aid_tpu_torch.diffusion import edm
+    sigma = torch.full((1, 1), 0.5, device=dev)
+    shapes = launch_shapes(torch, net, torch.zeros(1, cfg["L"], device=dev),
+                           edm.cnoise(res["ediff"].params, sigma))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gelu = str(res["args"].network.gelu)
+    err = max(check_launch_shapes(torch, fa, shapes, gelu, torch.float32, [e2e.BATCH], gen),
+              check_launch_shapes(torch, fa, shapes, gelu, torch.bfloat16, [1], gen))
+    scores = 2 * int(res["args"].tester.T) - 1
+    expected = per_fwd * (res["its"] + 2 * scores)
+    rec = {"check": "learning_gate", **{k: res[k] for k in (
+        "its", "L", "dtype", "snr_untrained_db", "snr_trained_db", "snr_gain_db",
+        "lsd_gap_trained", "lsd_gap_untrained", "lsd_gap_ratio", "s_per_it", "train_s",
+        "sample_untrained_s", "sample_trained_s", "launches_per_train_step",
+        "launches_per_sampling_run")},
+           "gates": {"min_snr_gain_db": cfg["min_gain_db"], "max_lsd_ratio": cfg["max_lsd_ratio"]},
+           "pass": res["ok"], "launches": launches["learning"], "expected_launches": expected,
+           "plain_vs_kernel_rel_err": rel_plain, "plain_launches": plain_launches,
+           "tol": BF16_TOL, "launch_shapes": {f"{r}x{c}": n for (r, c), n in sorted(shapes.items())},
+           "launch_shapes_max_abs_err": err, "card": card}
+    log(json.dumps(rec))
+    if not (res["ok"] and rel_plain <= BF16_TOL and plain_launches == 0
+            and launches["learning"] == expected and np.isfinite(rec_plain).all()):
+        fail(f"the learning gate: {rec}")
+    del net, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err, rec
+
+
+def phase_tools(torch, fa, np, work, card):
+    """Phase 10 in ``work``, after phase 8: phase 6e's model directory
+    (``main``, its step-2 and step-4 checkpoints) is still there."""
+    log("== phase 10: the port learns; the user tools on the card")
+    t_phase = time.time()
+    launches, out = {}, {}
+    err, out["learning_gate"] = phase_learning(torch, fa, np, work, card, launches)
+    md = os.path.join(work, "main")
+    ck4 = os.path.join(md, "22k_8s-4.pt")
+    per_fwd = FLAGSHIP_LAUNCHES
+    scores = 2 * TOOLS_T - 1
+
+    log("== phase 10b: scripts/make_synth_corpus_torch.py writes two 19 s test files")
+    synth = os.path.join(work, "synth")
+    load_script("scripts/make_synth_corpus_torch.py").write_corpus(synth, 0, 2, 19.0)
+
+    log(f"== phase 10c: scripts/eval_checkpoints_torch.py on {md} (2 clips, EVAL_BATCH 2, "
+        f"tester.T={TOOLS_T})")
+    t0 = time.time()
+    with counted(fa, launches, "eval_checkpoints"):
+        ledger = load_script("scripts/eval_checkpoints_torch.py").run(
+            md, synth, 2, TOOLS_OV, device="cuda", env={"EVAL_BATCH": "2"})
+    rows = ledger["rows"]
+    # the two checkpoints' EMA weights differ (two more steps of an EMA at
+    # its ramp-up), so their rows come from two different networks
+    from aid_tpu_torch.utils import checkpoint as ckpt
+    ema2, ema4 = (ckpt.load(os.path.join(md, f"22k_8s-{i}.pt"))["ema"] for i in (2, 4))
+    ema_diff = max(float((ema2[k].float() - ema4[k].float()).abs().max()) for k in ema2)
+    out["eval_ledger"] = {"rows": rows, "masked_baseline": ledger["masked_baseline"],
+                          "ema_max_abs_diff_it2_it4": ema_diff,
+                          "row_diff_it2_it4": [abs(a - b) for a, b in zip(rows[0][1:], rows[1][1:])],
+                          "wall_s": time.time() - t0}
+    log(json.dumps({"check": "eval_checkpoints", **out["eval_ledger"]}))
+    if not ([r[0] for r in rows] == [2, 4] and ledger["n_clips"] == 2 and ema_diff > 0
+            and os.path.exists(os.path.join(md, "eval_ledger.json"))
+            and all(finite(*r) for r in rows) and finite(*ledger["masked_baseline"].values())
+            and launches["eval_checkpoints"] == per_fwd * scores * len(rows)):
+        fail(f"eval_checkpoints: {ledger} launches {launches['eval_checkpoints']}")
+
+    log(f"== phase 10d: scripts/eval_gap_sweep_torch.py on {ck4} (tester.T={TOOLS_T})")
+    t0 = time.time()
+    with counted(fa, launches, "eval_gap_sweep"):
+        table = load_script("scripts/eval_gap_sweep_torch.py").run(ck4, synth, 2, TOOLS_OV,
+                                                                    device="cuda")
+    out["gap_sweep"] = {"rows": table["rows"], "wall_s": time.time() - t0}
+    if not ([r[0] for r in table["rows"]] == [371, 743, 1486, 2962]
+            and all(finite(*r) for r in table["rows"])
+            and launches["eval_gap_sweep"] == per_fwd * scores * 4):
+        fail(f"eval_gap_sweep: {table} launches {launches['eval_gap_sweep']}")
+
+    out["demo"] = phase_demo(np, work, ck4)
+
+    log(f"== phase 10f: scripts/serve_bench_torch.py, SERVE_REPS 1, the 22 kHz flagship "
+        f"(tester.T={TOOLS_T})")
+    with counted(fa, launches, "serve_bench"):
+        bench = load_script("scripts/serve_bench_torch.py").run(overrides=TOOLS_OV, reps=1,
+                                                                device="cuda")
+    out["serve_bench"] = bench
+    if not (len(bench) == 3 and all(finite(r["latency_s"], r["rtf"]) and r["card"] == card
+                                    for r in bench) and launches["serve_bench"] > 0):
+        fail(f"serve_bench: {bench}")
+
+    out["export"] = phase_export(torch, fa, np, work, ck4, launches)
+    out["launches"] = launches
+    out["phase_s"] = time.time() - t_phase
+    out["card"] = card
+    log(json.dumps({"tools": out}))
+    return sum(launches.values()), err
+
+
+def phase_demo(np, work, ck4):
+    """10e: examples/demo_inpainting_torch.py as a user runs it, in its own
+    process: a 1500 ms time gap with phase 6e's step-4 checkpoint (observed
+    samples of the written files bit-exact), then --spectrogram."""
+    import subprocess
+    from aid_tpu_torch.data import audio_io
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = {}
+    for mode, extra in (("time_gap", ["--checkpoint", ck4, "--gap-ms", "1500"]),
+                        ("spectrogram", ["--spectrogram"])):
+        d = os.path.join(work, f"demo_{mode}")
+        cmd = [sys.executable, os.path.join(here, "examples", "demo_inpainting_torch.py"),
+               "--T", str(TOOLS_T), "--out", d, *extra]
+        log(f"== phase 10e: {' '.join(cmd[1:])}")
+        t0 = time.time()
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        wall = time.time() - t0
+        if p.returncode != 0:
+            fail(f"the demo ({mode}) exited {p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        sig = {n: audio_io.read(os.path.join(d, n + ".wav"))[0]
+               for n in ("original", "degraded", "reconstructed")}
+        rec = {"wall_s": wall, "finite": all(bool(np.isfinite(v).all()) for v in sig.values()),
+               "samples": len(sig["reconstructed"])}
+        if mode == "time_gap":
+            L, fs, hann = len(sig["original"]), 22050, 50
+            gap = int(1.5 * fs)
+            s = (L - gap) // 2
+            far = np.ones(L, bool)
+            far[s - hann:s + gap + hann] = False
+            rec["observed_bit_exact"] = bool(np.array_equal(sig["reconstructed"][far],
+                                                            sig["original"][far]))
+            rec["gap_rms"] = float(np.sqrt(np.mean(sig["reconstructed"][s:s + gap] ** 2)))
+        res[mode] = rec
+        log(json.dumps({"check": "demo", "mode": mode, **rec}))
+        if not (rec["finite"] and rec.get("observed_bit_exact", True)
+                and rec.get("gap_rms", 1.0) > 0):
+            fail(f"the demo ({mode}): {rec}")
+    return res
+
+
+def phase_export(torch, fa, np, work, ck4, launches):
+    """10g: export_checkpoint_from on phase 6e's step-4 checkpoint; the
+    reference .pt loads back bit-equal; parity_vs_reference_torch exports
+    its f32 denoiser and compares against its own export."""
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.utils import checkpoint as ckpt
+    from aid_tpu_torch.utils import checkpoint_torch
+    from aid_tpu_torch.utils.config import compose
+    log(f"== phase 10g: export_checkpoint_from({os.path.basename(ck4)}), the reference .pt "
+        "loaded back, parity_vs_reference_torch --export, then --compare")
+    ref = os.path.join(work, "ref-4.pt")
+    checkpoint_torch.export_checkpoint_from(ck4, ref)
+    ema = ckpt.load(ck4)["ema"]
+    net = tsetup.setup_network(compose(overrides=[*TOOLS_OV, "network.compute_dtype=float32"]),
+                               device="cuda", seed=1)
+    checkpoint_torch.load_reference_checkpoint(ref, net)
+    exact = all(torch.equal(v.cpu(), ema[k].float()) for k, v in net.state_dict().items())
+    del net, ema
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = load_script("scripts/parity_vs_reference_torch.py")
+    npz = os.path.join(work, "parity.npz")
+    with counted(fa, launches, "parity"):
+        got = parity.run(parity.parse(["--pt", ref, "--export", npz]), TOOLS_OV)
+    same = parity.run(parity.parse(["--pt", ref, "--compare", npz]), TOOLS_OV)
+    rec = {"check": "export", "pt_round_trip_bit_equal": exact,
+           "denoised_finite": bool(np.isfinite(got["denoised"]).all()),
+           "compare_max_abs_diff": same["max_abs_diff"], "compare_tol": parity.COMPARE_TOL,
+           "launches": launches["parity"]}
+    log(json.dumps(rec))
+    if not (exact and rec["denoised_finite"]
+            and launches["parity"] == FLAGSHIP_LAUNCHES * len(parity.SIGMAS)):
+        fail(f"export and parity: {rec}")
+    return rec
+
+
 def main():
     import numpy as np
     import torch
@@ -1818,22 +2096,25 @@ def main():
         parallel_launches, parallel_err = phase_parallel(
             torch, fa, np, work, card, answers["a_centre_gap_1500ms"], request_b)
         test_launches, testing = phase_testing(torch, fa, np, work, card)
+        tools_launches, tools_err = phase_tools(torch, fa, np, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({"testing": {**testing, "card": card}}))
     log(json.dumps({"launches_by_path": {"serving": launches, "serving_44k": launches_44k,
                                          "training": train_launches,
                                          "parallel": parallel_launches,
-                                         "testing": test_launches}}))
+                                         "testing": test_launches,
+                                         "tools": tools_launches}}))
 
     log("== phase 9: kernels")
     kernels = [{"name": "fused_adaln_fwd", "route": "triton",
                 "source": "aid_tpu_torch/ops/fused_adaln.py",
                 "replaces": "aid_tpu/ops/pallas/fused_adaln.py:62",
                 "launches": (launches + launches_44k + train_launches + parallel_launches
-                             + test_launches),
+                             + test_launches + tools_launches),
                 "max_abs_err": max(worst[("bfloat16", "tanh")], timing["max_abs_err"],
-                                   timing_44k["max_abs_err"], train_err, parallel_err),
+                                   timing_44k["max_abs_err"], train_err, parallel_err,
+                                   tools_err),
                 "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                 "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
                 "library_ms": None}]

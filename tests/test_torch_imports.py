@@ -13,10 +13,13 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aid_tpu")
-# the port, chip_smoke.py, and the ranks the parallel tests spawn (they must
-# not start JAX beside the test process's eight fake devices)
-SOURCES = sorted((ROOT / "aid_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                           ROOT / "tests/torch_dist_worker.py"]
+# the port, chip_smoke.py, the port's scripts and demo, and the ranks the
+# parallel tests spawn (they must not start JAX beside the test process's
+# eight fake devices)
+SOURCES = (sorted((ROOT / "aid_tpu_torch").rglob("*.py"))
+           + [ROOT / "chip_smoke.py", ROOT / "tests/torch_dist_worker.py",
+              ROOT / "examples/demo_inpainting_torch.py"]
+           + sorted((ROOT / "scripts").glob("*_torch.py")))
 
 
 def _imported(path):
@@ -54,7 +57,19 @@ def test_new_modules_are_scanned():
     assert {"aid_tpu_torch/data/audio_io.py", "aid_tpu_torch/data/librispeech.py",
             "aid_tpu_torch/serving.py", "aid_tpu_torch/parallel/mesh.py",
             "aid_tpu_torch/parallel/ring_attention.py", "aid_tpu_torch/parallel/tp.py",
-            "tests/torch_dist_worker.py"} <= names
+            "tests/torch_dist_worker.py", "aid_tpu_torch/utils/summary.py",
+            "aid_tpu_torch/utils/io.py", "examples/demo_inpainting_torch.py",
+            "scripts/e2e_smoke_torch.py", "scripts/eval_checkpoints_torch.py",
+            "scripts/eval_gap_sweep_torch.py", "scripts/make_synth_corpus_torch.py",
+            "scripts/parity_vs_reference_torch.py", "scripts/serve_bench_torch.py"} <= names
+
+
+def test_the_orbax_converter_is_jax_side_only():
+    """scripts/orbax_to_stream.py converts with the JAX package and imports
+    nothing of the port."""
+    names = list(_imported(ROOT / "scripts/orbax_to_stream.py"))
+    assert not any(n.split(".")[0] == "aid_tpu_torch" for n in names)
+    assert "aid_tpu.utils" in names
 
 
 PROBE = """
