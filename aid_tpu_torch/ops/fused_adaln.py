@@ -36,9 +36,12 @@ GELU_VARIANTS = ("erf", "tanh", "sigmoid")
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
-# Launches of the Triton kernel; the wrapper adds one per launch and nothing
-# else touches it except ``reset_launch_count``.
+# Launches of the Triton kernel. The wrapper adds one per launch; a launch
+# that a CUDA graph capture records instead goes to ``_captured``, and each
+# replay of that graph adds what it recorded (``add_replayed_launches``).
+# Nothing else touches them except ``reset_launch_count``.
 _launches = 0
+_captured = 0
 
 
 def launch_count() -> int:
@@ -48,6 +51,17 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+def captured_count() -> int:
+    """Launches recorded by CUDA graph captures so far (not run by them)."""
+    return _captured
+
+
+def add_replayed_launches(n: int) -> None:
+    """A replay of a CUDA graph that recorded ``n`` launches launched them."""
+    global _launches
+    _launches += n
 
 
 # ------------------------------------------------------------------ plain
@@ -136,7 +150,7 @@ def _tile(C: int):
 
 def _fused_cuda(x: torch.Tensor, inv: torch.Tensor, mod: torch.Tensor,
                 gelu: str) -> torch.Tensor:
-    global _launches
+    global _launches, _captured
     kernel = _build_kernel()
     B, R, C = x.shape
     y = torch.empty_like(x)
@@ -144,7 +158,10 @@ def _fused_cuda(x: torch.Tensor, inv: torch.Tensor, mod: torch.Tensor,
     grid = ((R + block_r - 1) // block_r, B)
     kernel[grid](x, inv, mod, y, R, C, BLOCK_R=block_r, BLOCK_C=block_c,
                  GELU=GELU_VARIANTS.index(gelu), num_warps=8)
-    _launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        _captured += 1
+    else:
+        _launches += 1
     return y
 
 

@@ -3,9 +3,14 @@
 Port of ``aid_tpu/sampling/heun.py``: the same score branches
 (unconditional, reconstruction-guided, replacement-only), per-sample
 guidance normalisation, both guidance-epsilon placements, churn, the Heun
-correction, and the final Euler step outside the loop. The loop is a
-Python loop. Guidance is ``torch.autograd.grad`` of the summed per-sample
-residual norms through the denoiser.
+correction, and the final Euler step outside the loop. As in the JAX
+package a trajectory is ``T - 1`` steps of one body (``heun_body``: churn,
+score, Euler step, Heun correction) and one last step (``heun_last``:
+churn, score, Euler step), each reading its step values from 0-dim
+tensors: ``heun_sample`` loops over them eagerly, and
+``sampling/program.py`` captures the same two functions as CUDA graphs.
+Guidance is ``torch.autograd.grad`` of the summed per-sample residual norms
+through the denoiser.
 
 Noise is injected: ``prior [B, L]`` and ``churn [T, B, L]`` standard-normal
 draws (the JAX package draws them from threefry keys, which torch cannot
@@ -134,12 +139,60 @@ def make_score_fn(p: edm.EDMParams, cfg: SamplerConfig,
 
 
 def draw_noise(shape: Tuple[int, ...], T: int, generator: Optional[torch.Generator] = None,
-               device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The standard-normal prior [shape] and churn [T, shape] that
-    ``heun_sample`` draws from ``generator`` when neither is injected (in
-    its order: the prior first)."""
-    prior = torch.randn(tuple(shape), generator=generator, device=device)
-    return prior, torch.randn((T,) + tuple(shape), generator=generator, device=device)
+               device=None, prior: Optional[torch.Tensor] = None,
+               churn: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The standard-normal prior [shape] and churn [T, shape], each the
+    injected tensor when given, else drawn from ``generator`` (the prior
+    first); shapes checked."""
+    shape = tuple(shape)
+    if prior is None:
+        prior = torch.randn(shape, generator=generator, device=device)
+    if churn is None:
+        churn = torch.randn((T,) + shape, generator=generator, device=device)
+    if tuple(prior.shape) != shape or tuple(churn.shape) != (T,) + shape:
+        raise ValueError(f"noise shapes prior {tuple(prior.shape)}, churn "
+                         f"{tuple(churn.shape)} do not fit {shape} x T={T}")
+    return prior, churn
+
+
+def _score(cfg: SamplerConfig, score_fn: Callable, x, t):
+    out = score_fn(x, t)
+    return out if cfg.record else (out, None)
+
+
+def _churn(p: edm.EDMParams, x, t_i, g_i, z):
+    """t_hat = t + gamma t, with sqrt(t_hat^2 - t^2) extra noise."""
+    t_hat = t_i + g_i * t_i
+    extra = torch.clamp_min(t_hat ** 2 - t_i ** 2, 0.0).sqrt()
+    return t_hat, x + extra * (z * p.Snoise)
+
+
+def heun_body(p: edm.EDMParams, cfg: SamplerConfig, score_fn: Callable, x: torch.Tensor,
+              t_i: torch.Tensor, t_next: torch.Tensor, g_i: torch.Tensor,
+              z: torch.Tensor):
+    """One step before the last: churn with the standard-normal row ``z``,
+    the Euler step d = -t_hat score and, at order 2, the Heun correction at
+    ``t_next``. The step values are 0-dim tensors, so the step has no branch
+    on them. Returns (x, the step's Record or None)."""
+    t_hat, x = _churn(p, x, t_i, g_i, z)
+    score, rec = _score(cfg, score_fn, x, t_hat)
+    d = -t_hat * score
+    h = t_next - t_hat
+    if cfg.order == 2:
+        x_prime = x + h * d
+        score2, _ = _score(cfg, score_fn, x_prime, t_next)
+        d_prime = -t_next * score2
+        return x + h * 0.5 * (d + d_prime), rec
+    return x + h * d, rec
+
+
+def heun_last(p: edm.EDMParams, cfg: SamplerConfig, score_fn: Callable, x: torch.Tensor,
+              t_i: torch.Tensor, t_next: torch.Tensor, g_i: torch.Tensor,
+              z: torch.Tensor):
+    """The last step (t_next = 0): churn and an Euler step."""
+    t_hat, x = _churn(p, x, t_i, g_i, z)
+    score, rec = _score(cfg, score_fn, x, t_hat)
+    return x + (t_next - t_hat) * (-t_hat * score), rec
 
 
 def heun_sample(shape: Tuple[int, ...], p: edm.EDMParams, cfg: SamplerConfig,
@@ -148,44 +201,21 @@ def heun_sample(shape: Tuple[int, ...], p: edm.EDMParams, cfg: SamplerConfig,
                 churn: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 device=None):
-    """Run the sampler: prior at t[0]; per step churn t_hat = t + gamma t with
-    sqrt(t_hat^2 - t^2) extra noise, the Euler step d = -t_hat score and (at
-    order 2, except on the last step) the Heun correction at t_next; a final
-    projection when data consistency is "end". Returns x, or (x, Record)
-    when ``cfg.record``."""
+    """Run the sampler eagerly: prior at t[0]; T - 1 ``heun_body`` steps,
+    then ``heun_last``; a final projection when data consistency is "end".
+    Returns x, or (x, Record) when ``cfg.record``."""
     if device is None and prior is not None:
         device = prior.device
     else:
         device = resolve_device(device)
     t = edm.create_schedule(p, cfg.T, device=device)
     gamma = edm.get_gamma(p, t[:-1])
-    if prior is None:
-        prior = torch.randn(shape, generator=generator, device=device)
-    if churn is None:
-        churn = torch.randn((cfg.T,) + tuple(shape), generator=generator, device=device)
-    if tuple(prior.shape) != tuple(shape) or tuple(churn.shape) != (cfg.T,) + tuple(shape):
-        raise ValueError(f"noise shapes prior {tuple(prior.shape)}, churn "
-                         f"{tuple(churn.shape)} do not fit {tuple(shape)} x T={cfg.T}")
+    prior, churn = draw_noise(shape, cfg.T, generator, device, prior, churn)
     x = prior * t[0]
     records = []
     for i in range(cfg.T):
-        last = i == cfg.T - 1
-        t_i, t_next, g_i = t[i], t[i + 1], gamma[i]
-        t_hat = t_i + g_i * t_i
-        extra = torch.clamp_min(t_hat ** 2 - t_i ** 2, 0.0).sqrt()
-        x = x + extra * (churn[i] * p.Snoise)
-        score = score_fn(x, t_hat)
-        if cfg.record:
-            score, rec = score
-        d = -t_hat * score
-        h = t_next - t_hat
-        if cfg.order == 2 and not last:
-            x_prime = x + h * d
-            score2 = score_fn(x_prime, t_next)
-            d_prime = -t_next * (score2[0] if cfg.record else score2)
-            x = x + h * 0.5 * (d + d_prime)
-        else:
-            x = x + h * d
+        step = heun_last if i == cfg.T - 1 else heun_body
+        x, rec = step(p, cfg, score_fn, x, t[i], t[i + 1], gamma[i], churn[i])
         if cfg.record:
             records.append(rec._replace(xt2=x))
     if cfg.data_consistency_end and proj_end is not None:

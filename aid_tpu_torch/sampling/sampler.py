@@ -3,9 +3,19 @@ unconditional generation, long/short-gap inpainting, spectrogram
 inpainting, bandwidth extension, declipping, phase retrieval, compressive
 sensing and autoregressive outpainting.
 
-Every ``predict_*`` builds its score function and runs ``heun_sample``.
+Inpainting (``predict_inpainting``, the inpainting segments of
+``predict_autoregressive``) and unconditional generation run through a
+``sampling.program.HeunProgram`` cached per (task, shape, dtypes, sampler
+config, fused function, weights): CUDA graphs of the guided-Heun step on
+the card, the same steps eagerly on the CPU (``heun_sample``'s result bit
+for bit). ``compile_inpainting`` builds one without running it. The other
+five tasks, ``rid`` recording and any call under a process group (whose
+collectives a graph cannot hold) build their score function and run
+``heun_sample`` eagerly.
+
 Noise is drawn from ``generator`` unless the standard-normal ``prior``
-[B, L] and ``churn`` [T, B, L] are injected. With ``rid`` each call returns
+[B, L] and ``churn`` [T, B, L] are injected, in ``heun_sample``'s order
+(the prior first), outside any graph. With ``rid`` each call returns
 (x, Record) instead of x.
 
 The tester's ``diff_params`` override applies at construction
@@ -14,13 +24,24 @@ The tester's ``diff_params`` override applies at construction
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from aid_tpu_torch.diffusion import edm
+from aid_tpu_torch.ops import fused_adaln as fa
 from aid_tpu_torch.sampling import degradations as degr
 from aid_tpu_torch.sampling.heun import SamplerConfig, draw_noise, heun_sample, make_score_fn
+from aid_tpu_torch.sampling.program import HeunProgram
+
+
+def denoise_at(p: edm.EDMParams, model, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """D(x, t) with one sigma, the 0-dim ``t``, for every row."""
+    sigma = t.reshape(1, 1).expand(x.shape[0], 1).float()
+    return edm.denoiser(p, model, x, sigma)
 
 
 class Sampler:
@@ -47,6 +68,9 @@ class Sampler:
             record=rid)
         self.smooth = bool(dc.use) and bool(dc.get("smooth", False))
         self.hann_size = int(dc.get("hann_size", 50))
+        self._programs = {}
+        self._weights = None
+        self._pool = self._stream = None
 
     @property
     def device(self) -> torch.device:
@@ -62,8 +86,7 @@ class Sampler:
         return prior[rows], churn[:, rows]
 
     def _denoise(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        sigma = t.reshape(1, 1).expand(x.shape[0], 1).float()
-        return edm.denoiser(self.p, self.model, x, sigma)
+        return denoise_at(self.p, self.model, x, t)
 
     def _hpf(self):
         cqt = getattr(self.model, "cqt", None)
@@ -83,26 +106,102 @@ class Sampler:
                            prior=prior, churn=churn, generator=generator,
                            device=self.device)
 
+    # -------------------------------------------------------------- programs
+
+    def _weights_key(self) -> tuple:
+        """Address, dtype and version of every parameter and buffer: a new
+        tensor (a dtype cast, a move) or an in-place load changes it."""
+        return tuple((t.data_ptr(), t.dtype, t._version)
+                     for t in itertools.chain(self.model.parameters(), self.model.buffers()))
+
+    def programs_enabled(self) -> bool:
+        """Programs serve every call but ``rid`` recording and calls under a
+        process group (gloo's collectives cannot be captured)."""
+        return not self.rid and not (dist.is_available() and dist.is_initialized())
+
+    def release_programs(self) -> None:
+        """Drop every cached program and the graph pool they share."""
+        self._programs.clear()
+        self._pool = self._stream = None
+
+    def _cached_program(self, task_key, build) -> HeunProgram:
+        """One program per (task key, fused function, weights): the fused
+        function is looked up at call time (a patched plain version builds
+        its own program), and programs of weights that were replaced or
+        loaded in place are dropped, never replayed."""
+        weights = self._weights_key()
+        if weights != self._weights:
+            self.release_programs()
+            self._weights = weights
+        key = (task_key, fa.norm_adaln_gelu)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = build()
+        return prog
+
+    def _program(self, task: str, shape, dtypes: dict) -> HeunProgram:
+        dev = self.device
+        if dev.type == "cuda" and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(dev)
+        key = (task, tuple(shape), tuple(sorted((k, str(v)) for k, v in dtypes.items())),
+               self.cfg, dev)
+        # the program holds the model, not the sampler: dropping the sampler
+        # frees its programs and their graph pool without a garbage collection
+        denoise = functools.partial(denoise_at, self.p, self.model)
+        return self._cached_program(key, lambda: HeunProgram(
+            task, self.p, self.cfg, denoise, tuple(shape), dtypes, dev,
+            hpf=self._hpf(), pool=self._pool, stream=self._stream))
+
+    def _smooth_mask(self, mask: torch.Tensor) -> torch.Tensor:
+        """The Hann-smoothed mask (each row its own), computed on the host."""
+        if not self.smooth:
+            return mask
+        return torch.from_numpy(degr.make_smooth_mask(
+            mask.detach().cpu().numpy(), self.hann_size)).to(mask.device)
+
+    def compile_inpainting(self, y_masked: torch.Tensor, mask: torch.Tensor) -> HeunProgram:
+        """Build (capture, on CUDA) the inpainting program that
+        ``predict_inpainting`` runs for these shapes and dtypes, noise drawn
+        in the default dtype, without running a trajectory; returns it (its
+        ``memory_bytes()`` drives ``InpaintingService.autotune_max_batch``)."""
+        noise = torch.get_default_dtype()
+        return self._program("inpainting", y_masked.shape, {
+            "x": noise, "z": noise, "y": y_masked.dtype, "mask": mask.dtype,
+            "smooth": torch.float32 if self.smooth else mask.dtype})
+
+    def _inpaint(self, y_masked, mask, smooth, generator, prior, churn):
+        """Inpainting with the projection's ``smooth`` mask: the program,
+        or ``heun_sample`` where programs are off."""
+        if not self.programs_enabled():
+            proj = degr.inpainting_projector(y_masked, smooth)
+            return self._sample(y_masked.shape, self.cfg, y=y_masked,
+                                degradation=degr.time_mask(mask), proj=proj, proj_end=proj,
+                                generator=generator, prior=prior, churn=churn)
+        prior, churn = draw_noise(y_masked.shape, self.cfg.T, generator, self.device,
+                                  prior, churn)
+        prog = self._program("inpainting", y_masked.shape, {
+            "x": prior.dtype, "z": churn.dtype, "y": y_masked.dtype, "mask": mask.dtype,
+            "smooth": smooth.dtype})
+        return prog.run(prior, churn, y_masked, mask, smooth)
+
     # ----------------------------------------------------------------- tasks
 
     def predict_unconditional(self, shape, generator: Optional[torch.Generator] = None,
                               prior=None, churn=None):
-        return self._sample(shape, self.cfg, generator=generator, prior=prior, churn=churn)
+        if not self.programs_enabled():
+            return self._sample(shape, self.cfg, generator=generator, prior=prior,
+                                churn=churn)
+        prior, churn = draw_noise(shape, self.cfg.T, generator, self.device, prior, churn)
+        prog = self._program("unconditional", shape, {"x": prior.dtype, "z": churn.dtype})
+        return prog.run(prior, churn)
 
     def predict_inpainting(self, y_masked: torch.Tensor, mask: torch.Tensor,
                            generator: Optional[torch.Generator] = None,
                            prior=None, churn=None):
         """Long/short-gap inpainting: the degradation is the mask multiply;
         the projection uses the Hann-smoothed mask (each row its own)."""
-        if self.smooth:
-            smooth = torch.from_numpy(degr.make_smooth_mask(
-                mask.detach().cpu().numpy(), self.hann_size)).to(mask.device)
-        else:
-            smooth = mask
-        proj = degr.inpainting_projector(y_masked, smooth)
-        return self._sample(y_masked.shape, self.cfg, y=y_masked,
-                            degradation=degr.time_mask(mask), proj=proj, proj_end=proj,
-                            generator=generator, prior=prior, churn=churn)
+        return self._inpaint(y_masked, mask, self._smooth_mask(mask), generator, prior, churn)
 
     def predict_spectrogram_inpainting(self, y_masked: torch.Tensor, mask_FT: torch.Tensor,
                                        generator: Optional[torch.Generator] = None,
@@ -186,11 +285,8 @@ class Sampler:
             y = torch.zeros((B, L), device=dev)
             y[:, :n_ov] = seg[:, -n_ov:]
             y = y * mask
-            proj = degr.inpainting_projector(y, mask)
             prior, churn = noise(i)
-            seg = self._sample(shape, self.cfg, y=y, degradation=degr.time_mask(mask),
-                               proj=proj, proj_end=proj, generator=generator, prior=prior,
-                               churn=churn)
+            seg = self._inpaint(y, mask, mask, generator, prior, churn)
             if self.rid:
                 seg = seg[0]
             out.append(seg[:, n_ov:])

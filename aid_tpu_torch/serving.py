@@ -2,8 +2,9 @@
 of ``aid_tpu/serving.py``).
 
   * each gap gets a model-length window centred on it;
-  * windows are batched up to ``max_batch`` rows per guided-Heun call (a
-    round runs only the rows it has: eager PyTorch has no fixed batch shape);
+  * windows are batched up to ``max_batch`` rows per guided-Heun call; a
+    round runs the sampler's program for the rows it has (one program per
+    row count, CUDA graphs on the card, all in one graph pool);
   * gaps longer than ``LONG_GAP_FRACTION`` of a window are filled by chained
     sub-windows, each conditioned on ``CHAIN_CONTEXT_FRACTION`` of leading
     context, marching left to right; a work-queue scheduler co-batches one
@@ -16,13 +17,15 @@ of ``aid_tpu/serving.py``).
     library has it), the gap mask mapped sample by sample; every observed
     input sample comes back exactly;
   * ``inpaint_file`` reads a file, restores it and writes it at its rate;
-  * ``precompile`` warms what a first request would otherwise pay for, and
-    ``autotune_max_batch`` fits ``max_batch`` to the card's memory;
+  * ``precompile`` builds the programs for every row count up to
+    ``max_batch`` without running them, and ``autotune_max_batch`` fits
+    ``max_batch`` to the card's memory from the programs' ``memory_bytes()``;
   * ``shard(mesh)`` serves over a process group's ranks: a ``"dp"`` mesh
     splits each round's windows over the ranks, a ("dp", "tp") mesh also
     splits every conv and dense layer's output channels
     (``parallel.tp``), a ("dp", "cp") mesh every activation's time axis
-    (full-score context parallelism, ``parallel.cp``).
+    (full-score context parallelism, ``parallel.cp``). Under a mesh the
+    sampler runs eagerly: gloo's collectives cannot be captured in a graph.
 """
 from __future__ import annotations
 
@@ -155,8 +158,9 @@ class InpaintingService:
 
     def _run_batch(self, xb: np.ndarray, mb: np.ndarray, seed: int) -> np.ndarray:
         """One guided-Heun call on an [n, L] window batch, its noise drawn
-        from a generator seeded with ``seed``; over a mesh, this rank's dp
-        block of rows, the blocks then all-gathered."""
+        from a generator seeded with ``seed``: the sampler's program for n
+        rows; over a mesh, this rank's dp block of rows (eagerly), the
+        blocks then all-gathered."""
         y = torch.from_numpy((xb * mb).astype(np.float32)).to(self.device)
         m = torch.from_numpy(mb.astype(np.float32)).to(self.device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -193,39 +197,45 @@ class InpaintingService:
             torch.cuda.synchronize(dev)
 
     def precompile(self, seed: int = 0) -> None:
-        """Warm what the first request would otherwise pay for: one guided
-        score at [max_batch, audio_len] builds the Triton kernel's variants,
-        puts the CQT tables on the device and lets cuDNN pick its
-        algorithms. Eager PyTorch has no whole-program compile (the JAX
-        package compiles its guided-Heun program here). Draws nothing from
-        any request's noise. After ``shard``, every rank calls it and runs
-        its dp block's rows."""
-        rows = self.max_batch
+        """Build the guided-Heun programs without running them (on the card:
+        warm-up and CUDA graph capture), as the JAX package compiles its
+        program here: the one for [max_batch, audio_len] first, then one
+        for each smaller row count, since a round runs only the rows it has
+        (JAX pads every round to max_batch). Draws nothing from any
+        request's noise. After ``shard`` the path runs eagerly: every rank
+        calls it and warms its dp block's rows with one guided score."""
         if self.mesh is not None:
-            rows //= pmesh.dim_size(self.mesh, pmesh.DATA_AXIS)
-        self._guided_score_once(rows, seed)
+            rows = self.max_batch // pmesh.dim_size(self.mesh, pmesh.DATA_AXIS)
+            self._guided_score_once(rows, seed)
+            return
+        for n in range(self.max_batch, 0, -1):
+            self._compiled_for_batch(n)
+
+    def _compiled_for_batch(self, n: int):
+        """The sampler's inpainting program for [n, audio_len] rounds
+        (built on first use)."""
+        L = int(self.args.exp.audio_len)
+        mask = torch.ones(n, L, device=self.device)
+        mask[:, L // 4:L // 2] = 0.0
+        return self.sampler.compile_inpainting(torch.zeros(n, L, device=self.device), mask)
 
     def _footprint(self, n: int) -> int:
-        """Device bytes of a guided score at [n, audio_len]: the network's
-        weights plus the peak that one score adds to what was allocated
-        before it (``torch.cuda.max_memory_allocated`` after
-        ``reset_peak_memory_stats``). A first, unmeasured score leaves what
-        stays allocated once (CQT tables on the device) out of the peak."""
-        dev = self.device
-        if dev.type != "cuda":
-            raise RuntimeError(f"autotune_max_batch measures CUDA memory; the network is on {dev}")
-        self._guided_score_once(n)
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        self._guided_score_once(n)
+        """Device bytes of guided sampling at [n, audio_len]: the network's
+        weights plus the program's ``memory_bytes()`` (its static buffers
+        and the graph pool its capture took). A probe wider than
+        ``max_batch`` is dropped with the graph pool it grew (``precompile``
+        builds what serves)."""
         weights = sum(p.numel() * p.element_size() for p in self.network.parameters())
-        return weights + torch.cuda.max_memory_allocated(dev) - base
+        nbytes = weights + self._compiled_for_batch(n).memory_bytes()
+        if n > self.max_batch:
+            self.sampler.release_programs()
+        return nbytes
 
     def autotune_max_batch(self, limit_bytes: Optional[int] = None,
                            margin: float = 0.85, cap: int = 16) -> int:
-        """Fit ``max_batch`` to device memory from the footprints of one
-        guided score at batch 1 and 2: the per-row bytes are their
-        difference, the rest is fixed. Returns the largest batch whose
+        """Fit ``max_batch`` to device memory from the footprints of the
+        programs at batch 1 and 2: the per-row bytes are their difference,
+        the rest is fixed. Returns the largest batch whose
         footprint stays under ``margin * limit_bytes`` (at most ``cap``) and
         caps ``max_batch`` with it; it never raises a configured
         ``max_batch`` (fitting memory is necessary, the throughput optimum

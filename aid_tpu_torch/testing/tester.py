@@ -213,11 +213,16 @@ class Tester:
     def sample_unconditional_ema(self, ema: Dict[str, torch.Tensor]) -> np.ndarray:
         """The trainer's demo: load ``ema`` (parameter name -> tensor) into
         the tester's network (in training, its own copy) and sample
-        unconditionally."""
+        unconditionally. The next demo loads other weights, which drops the
+        program built over these, so it is released now: training does not
+        carry its graph pool between demos."""
         with torch.no_grad():
             for n, p in self.network.named_parameters():
                 p.copy_(ema[n])
-        return self.sample_unconditional()
+        try:
+            return self.sample_unconditional()
+        finally:
+            self.sampler.release_programs()
 
     def test_unconditional(self) -> None:
         d = os.path.join(self.base_dir, "unconditional")

@@ -10,7 +10,12 @@ and power limit:
   * one denoiser forward and one guided score (forward + input gradient),
     host clock around work that ends in a synchronise;
   * the ten device kernels that take the most time in one guided score
-    (``torch.profiler``), written in full to ``DIR/profile_score.txt``.
+    (``torch.profiler``), written in full to ``DIR/profile_score.txt``;
+  * one step of the guided-Heun body (churn, two guided scores, the Heun
+    update) run eagerly and replayed from the sampler's captured program
+    (``Sampler.compile_inpainting``): wall time, device time (the kernels'
+    sum under ``torch.profiler``, and the span between CUDA events around
+    the replay) and the device's idle share of the wall, 1 - device / wall.
 
 ``gpu_line`` and ``flagship_case`` are shared with ``chip_smoke.py`` and
 ``scripts/torch_conv_fold.py``. It needs a CUDA device and fails without one.
@@ -33,7 +38,7 @@ from aid_tpu_torch import setup
 from aid_tpu_torch.diffusion import edm
 from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
 from aid_tpu_torch.sampling import degradations as degr
-from aid_tpu_torch.sampling.heun import make_score_fn
+from aid_tpu_torch.sampling.heun import draw_noise, make_score_fn
 from aid_tpu_torch.utils.config import compose
 
 
@@ -85,6 +90,63 @@ def wall_s(fn, reps: int = 3) -> float:
     return best
 
 
+def device_ms(fn) -> float:
+    """The device kernels' summed time in one call of ``fn``
+    (``torch.profiler``, CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """The shortest span, between CUDA events on the current stream, of
+    one call of ``fn``."""
+    best = float("inf")
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        best = min(best, a.elapsed_time(b))
+    return best
+
+
+def body_step(case) -> dict:
+    """One guided-Heun body step of ``case`` at its first step's values,
+    eagerly (``heun_body`` over the program's buffers) and replayed from
+    the captured graph: wall, device time and idle share of each."""
+    prog = case.sampler.compile_inpainting(case.audio * case.mask, case.mask)
+    prog.y.copy_(case.audio * case.mask)
+    prog.mask.copy_(case.mask)
+    prog.smooth.copy_(case.mask)
+    gen = torch.Generator(device=case.audio.device).manual_seed(0)
+    prior, churn = draw_noise(prog.shape, prog.cfg.T, gen, case.audio.device)
+    start = prior * prog.t[0]
+
+    def eager():
+        prog.x.copy_(start)
+        prog._set_step(0, churn)
+        prog._body()
+
+    def replay():
+        prog.x.copy_(start)
+        prog._set_step(0, churn)
+        prog.graphs["body"].replay()
+
+    out = {"capture_s": prog.capture_s, "memory_bytes": prog.memory_bytes(),
+           "launches_per_replay": prog.launches["body"]}
+    for name, fn in (("eager", eager), ("graph", replay)):
+        wall = wall_s(fn)
+        dev = device_ms(fn)
+        out[name] = {"wall_ms": wall * 1e3, "device_ms": dev, "event_ms": event_ms(fn),
+                     "idle_share": max(0.0, 1.0 - dev / (wall * 1e3))}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out")
@@ -127,6 +189,7 @@ def main():
         print(json.dumps({"kernel": e.key[:90], "calls": e.count,
                           "device_ms": e.self_device_time_total / 1e3,
                           "share": e.self_device_time_total / max(total, 1)}), flush=True)
+    print(json.dumps({"heun_body_step": body_step(case), "card": gpu}), flush=True)
 
 
 if __name__ == "__main__":

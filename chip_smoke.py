@@ -26,9 +26,15 @@ Phases (any failure exits non-zero before the last line is printed):
      over rotating buffers, so no launch finds its data in L2) and summed
      beside the bound;
   5. serving (the main path): InpaintingService.from_config([]) (bf16, T=35,
-     order 2, guided) answers 3 requests: an 8.35 s clip with a 1500 ms
+     order 2, guided) precompiles its guided-Heun programs (CUDA graphs, one
+     per row count up to max_batch: capture time, memory_bytes, launches per
+     run) and answers 3 requests through them: an 8.35 s clip with a 1500 ms
      centre gap, ~2.5 windows with four 25 ms gaps, and a clip whose gap
-     exceeds 0.6 windows (chained); launch counts and the real-time factor;
+     exceeds 0.6 windows (chained); launch counts (those the graphs' replays
+     make) and the real-time factor; (d) request (a)'s round against
+     heun_sample run eagerly on the same noise (bf16 tolerance; wall time and
+     peak memory beside the program's), and against the program built with
+     the plain version patched in;
   5b. the 44.1 kHz MusicNet flagship (network=cqtdiff_plus_44k,
      exp=musicnet44k_4s, bf16, batch 1): its denoiser and guided score with
      the kernel and with the plain version (111 launches per call); the
@@ -39,7 +45,9 @@ Phases (any failure exits non-zero before the last line is printed):
      (resampled in and out; the written file at 48 kHz and the input's
      length, observed samples within one 16-bit step of the input file) and
      a 4.18 s 44.1 kHz request with a 1500 ms centre gap (observed samples
-     bit-exact); the resampler route and the native library's build status;
+     bit-exact), all through the programs; (d) the request's round against
+     heun_sample run eagerly on the same noise; the resampler route and the
+     native library's build status;
   6. training (the second main path) on a synthetic corpus in MAESTRO v3
      layout (CSV + WAVs at 44.1 and 48 kHz, longer than load_len), full
      flagship width, batch 4, f32:
@@ -59,7 +67,11 @@ Phases (any failure exits non-zero before the last line is printed):
           corpus (remat on, TF32 as the training default), checkpoints at 2
           and 4; a second main resumes from the step-2 checkpoint and
           reaches step 4; step time, peak memory and launches per step;
-  7. multi-device (the port's torch.distributed path), full flagship width:
+  7. multi-device (the port's torch.distributed path), full flagship width;
+     while the ranks of 7b-7g run, this process runs 10a (light on device
+     memory while the ranks' training steps peak), 7a, 7c's reference and
+     8a-8b (every rank path runs eagerly: gloo's collectives cannot be
+     captured):
        a. ``aid_tpu_torch.train.main`` with exp.mesh.fsdp over NCCL, one rank
           (the card count), 2 steps, TF32 as the training default: launches,
           step time, peak memory, the checkpoint in the one-device layout;
@@ -70,8 +82,10 @@ Phases (any failure exits non-zero before the last line is printed):
           draws (loss, pre-clip norm, parameters); step time and peak memory
           per rank;
        c. ``InpaintingService.shard()`` over dp=2 answers phase 5's request
-          (b) (2 rows a round, one per rank): within phase 3's bf16
-          tolerance of phase 5's answer, observed samples bit-exact, RTF;
+          (b) (2 rows a round, one per rank) at tester.T=8 (cut from 35 for
+          the time budget): within phase 3's bf16 tolerance of the one-rank
+          service's answer at the same settings, observed samples
+          bit-exact, RTF;
        d. one f32 guided score with the conv and dense layers split over
           tp=2, and (e) one with attention_dict.context_parallel over a cp=2
           mesh, each against the replicated score: errors and wall times;
@@ -84,7 +98,8 @@ Phases (any failure exits non-zero before the last line is printed):
           of the one-rank service at the same settings, observed samples
           bit-exact, RTF;
        every rank's launches go into the kernels line;
-  8. evaluation (the third main path) at full flagship width, bf16, on the
+  8. evaluation (the third main path; a-b beside phase 7's ranks, so their
+     walls are taken on a shared card) at full flagship width, bf16, on the
      same corpus with a test-split row at 44.1 kHz (resampled to 22.05 kHz
      by the tester):
        a. ``aid_tpu_torch.test.main`` runs the inpainting mode at T=35 on one
@@ -98,13 +113,15 @@ Phases (any failure exits non-zero before the last line is printed):
           every wav of a-c finite, every metrics.json with finite LSD and
           SNR, the inpainting output equal to the original (within one 16-bit
           step) farther than ``hann_size`` from the gap, and the kernel's
-          launches over a-c equal to 90 per denoiser call plus 180 per
-          training step;
+          launches over a-c equal to 90 per denoiser evaluation (each
+          program's warm-up and replays counted, its capture not) plus 180
+          per training step; the memory the demo's program holds;
        d. a reference-layout ``.pt`` written from a seeded network loads back
           exactly, and ``test_inpainting`` with the plain version patched in
           agrees with the kernel run within phase 3's bf16 tolerance;
-  10. the port learns, and the user tools (after phase 8, in its work
-     directory), bf16 serving at full flagship width unless said:
+  10. the port learns (a: beside phase 7's ranks), and the user tools (b-g:
+     after 8d, in its work directory), bf16 serving at full flagship width
+     unless said:
        a. the learning gate: ``scripts/e2e_smoke_torch.run`` trains the tiny
           CQTDiff+ on synthetic chords (SMOKE_L 16384, 400 steps at batch 8,
           f32 with TF32 convs) and inpaints a 50 ms gap with its EMA before
@@ -123,15 +140,17 @@ Phases (any failure exits non-zero before the last line is printed):
           four gap lengths, finite numbers;
        e. ``examples/demo_inpainting_torch.py`` in its own process, with the
           step-4 checkpoint and a 1500 ms gap (the written files' observed
-          samples bit-exact), then with ``--spectrogram``;
+          samples bit-exact; started with phase 7's ranks, beside them),
+          and with ``--spectrogram`` in another (started after phase 7,
+          beside 8c-8d and 10b-10d); both are checked here;
        f. ``scripts/serve_bench_torch.py`` with SERVE_REPS 1: its three
           rows with the card;
        g. ``export_checkpoint_from`` on the step-4 checkpoint: the reference
           ``.pt`` loads back bit-equal; ``parity_vs_reference_torch``
           exports its f32 denoiser (finite) and passes against itself;
      10c-10g run tester.T=8 (cut from 35 for the time budget);
-  9. the ``kernels`` JSON line (phase 10's launches and errors included),
-     then the device JSON line.
+  9. each phase's seconds, the ``kernels`` JSON line (phase 10's launches
+     and errors included), then the device JSON line.
 
 f32 comparisons run with TF32 off (torch.backends.cuda.matmul.allow_tf32
 and torch.backends.cudnn.allow_tf32 both False).
@@ -159,8 +178,43 @@ LAUNCHES_44K = 111         # fused-kernel launches per 44 kHz denoiser call
 FLAGSHIP_LAUNCHES = 90     # ... per 22 kHz denoiser call
 
 
+PHASE_S = {}               # wall seconds of each phase of main()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def killed_on_failure(procs):
+    """Kill the processes ``procs`` if the body raises (a failed check
+    exits through SystemExit), so none outlives the script."""
+    procs = list(procs)
+    try:
+        yield
+    except BaseException:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        raise
+
+
+@contextlib.contextmanager
+def phase_time(name):
+    """Times a phase of main(); logs its seconds and, as it ends, this
+    process's allocated and reserved device memory and the card's use."""
+    import torch
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        PHASE_S[name] = time.time() - t0
+        free, total = torch.cuda.mem_get_info()
+        log(json.dumps({"phase": name, "seconds": PHASE_S[name],
+                        "allocated_gb": torch.cuda.memory_allocated() / 2 ** 30,
+                        "reserved_gb": torch.cuda.memory_reserved() / 2 ** 30,
+                        "card_used_gb": (total - free) / 2 ** 30}))
 
 
 def fail(msg):
@@ -217,6 +271,76 @@ def plain_forced(fa):
         yield
     finally:
         fa.norm_adaln_gelu = kernel
+
+
+@contextlib.contextmanager
+def built_programs():
+    """The report of every sampler program (``sampling.program.HeunProgram``)
+    captured inside, taken when its capture ends (a program itself is not
+    kept: it holds its graph pool). Each one's warm-up ran its two steps
+    once, eagerly, so it evaluated the denoiser ``warmup_scores`` times on
+    the device."""
+    from aid_tpu_torch.sampling import program
+    orig, built = program.HeunProgram._capture, []
+
+    def capture(self, pool, stream):
+        orig(self, pool, stream)
+        built.append(self.report())
+
+    program.HeunProgram._capture = capture
+    try:
+        yield built
+    finally:
+        program.HeunProgram._capture = orig
+
+
+def warmup_scores(built):
+    return sum(r["scores"]["body"] + r["scores"]["last"] for r in built)
+
+
+def program_reports(sampler):
+    return [p.report() for p in sampler._programs.values()]
+
+
+def program_vs_eager(torch, fa, np, svc, call, card, tag):
+    """One served round (``call`` = (xb, mb, seed, answer) of ``_run_batch``,
+    answered by the sampler's program) against ``heun_sample`` run eagerly
+    on the same inputs and the same noise (the generator seeded as the
+    round seeded it), with the eager trajectory's wall time and peak
+    memory beside the program's ``memory_bytes()``."""
+    from aid_tpu_torch.sampling import degradations as degr
+    from aid_tpu_torch.sampling import heun
+    xb, mb, seed, got = call
+    s, dev = svc.sampler, svc.device
+    y = torch.from_numpy((xb * mb).astype(np.float32)).to(dev)
+    m = torch.from_numpy(mb.astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prior, churn = heun.draw_noise(tuple(y.shape), s.cfg.T, gen, dev)
+    smooth = s._smooth_mask(m)
+    proj = degr.inpainting_projector(y, smooth)
+    score = heun.make_score_fn(s.p, s.cfg, s._denoise, y=y, degradation=degr.time_mask(m),
+                               proj=proj, hpf=s._hpf())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eager = heun.heun_sample(tuple(y.shape), s.p, s.cfg, score, proj_end=proj, prior=prior,
+                             churn=churn)
+    torch.cuda.synchronize()
+    eager_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    eager = eager.float().cpu().numpy()
+    prog = svc._compiled_for_batch(len(xb))
+    rec = {"check": "program_vs_eager", "request": tag, "rows": len(xb),
+           "max_abs_diff": float(np.abs(got - eager).max()),
+           "rel_err": float(np.abs(got - eager).max() / np.abs(eager).max()), "tol": BF16_TOL,
+           "finite": bool(np.isfinite(got).all() and np.isfinite(eager).all()),
+           "eager_trajectory_s": eager_s, "eager_peak_bytes": peak,
+           "program": prog.report(), "card": card}
+    log(json.dumps(rec))
+    if not (rec["finite"] and rec["rel_err"] <= BF16_TOL and prog.graphs is not None):
+        fail(f"the program disagrees with the eager sampler: {rec}")
+    return rec, (y, m, smooth, prior, churn)
 
 
 def phase_kernel(torch, fa, batches):
@@ -479,8 +603,9 @@ def music(np, n, fs, seed):
     return (0.1 * x / np.abs(x).max()).astype(np.float32)
 
 
-def phase_serving(torch, fa, np, batches):
-    log("== phase 5: InpaintingService.from_config([]) answers 3 requests")
+def phase_serving(torch, fa, np, batches, card):
+    log("== phase 5: InpaintingService.from_config([]) answers 3 requests through its "
+        "precompiled programs (CUDA graphs)")
     from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
     from aid_tpu_torch.serving import InpaintingService
     t0 = time.time()
@@ -490,12 +615,19 @@ def phase_serving(torch, fa, np, batches):
     T, order = svc.sampler.cfg.T, svc.sampler.cfg.order
     log(f"service built in {time.time() - t0:.1f} s: L={L} fs={fs} T={T} order={order} "
         f"max_batch={svc.max_batch} dtype={svc.network.dtype}")
-    rounds = []
+    t0 = time.time()
+    svc.precompile()
+    log(json.dumps({"check": "precompile", "wall_s": time.time() - t0,
+                    "programs": program_reports(svc.sampler), "card": card}))
+    rounds, calls = [], []
     run = svc._run_batch
 
     def counted(xb, mb, seed):
         rounds.append(xb.shape[0])
-        return run(xb, mb, seed)
+        t1 = time.time()
+        out = run(xb, mb, seed)
+        calls.append((xb, mb, seed, out, time.time() - t1))
+        return out
 
     svc._run_batch = counted
     g25, g1500 = int(0.025 * fs), int(1.5 * fs)
@@ -518,37 +650,71 @@ def phase_serving(torch, fa, np, batches):
 
     steps_per_traj = 2 * T - 1 if order == 2 else T
     torch.cuda.synchronize()
-    fa.reset_launch_count()          # the main path starts here
-    results, answers = [], {}
-    for name, n, m in reqs:
-        audio = music(np, n, fs, seed=len(results))
-        r0 = len(rounds)
-        t1 = time.time()
-        out = svc.inpaint(audio, m, fs, seed=1)
-        answers[name] = {"audio": audio, "mask": m, "fs": fs, "answer": out}
-        wall = time.time() - t1
-        gap = m < 0.5
-        rec = {"request": name, "seconds_of_audio": n / fs, "gap_samples": int(gap.sum()),
-               "rounds": rounds[r0:], "wall_s": wall, "rtf": n / fs / wall,
-               "finite": bool(np.isfinite(out).all()),
-               "observed_exact": bool(np.array_equal(out[~gap], audio[~gap])),
-               "gap_nonzero": bool(np.abs(out[gap]).max() > 0),
-               "gap_rms": float(np.sqrt(np.mean(out[gap] ** 2)))}
-        log(json.dumps(rec))
-        results.append(rec)
-    launches = fa.launch_count()     # ... and ends here
+    with built_programs() as built:
+        fa.reset_launch_count()          # the main path starts here
+        results, answers = [], {}
+        for name, n, m in reqs:
+            audio = music(np, n, fs, seed=len(results))
+            r0 = len(rounds)
+            t1 = time.time()
+            out = svc.inpaint(audio, m, fs, seed=1)
+            answers[name] = {"audio": audio, "mask": m, "fs": fs, "answer": out}
+            wall = time.time() - t1
+            gap = m < 0.5
+            rec = {"request": name, "seconds_of_audio": n / fs, "gap_samples": int(gap.sum()),
+                   "rounds": rounds[r0:], "round_s": [c[4] for c in calls[r0:]],
+                   "wall_s": wall, "rtf": n / fs / wall,
+                   "finite": bool(np.isfinite(out).all()),
+                   "observed_exact": bool(np.array_equal(out[~gap], audio[~gap])),
+                   "gap_nonzero": bool(np.abs(out[gap]).max() > 0),
+                   "gap_rms": float(np.sqrt(np.mean(out[gap] ** 2)))}
+            log(json.dumps(rec))
+            results.append(rec)
+        torch.cuda.synchronize()
+        launches = fa.launch_count()     # ... and ends here
     expected = 90 * steps_per_traj * len(rounds)
     log(json.dumps({"check": "serving_launches", "launches": launches,
                     "expected": expected, "rounds": len(rounds),
-                    "score_calls_per_round": steps_per_traj}))
+                    "score_calls_per_round": steps_per_traj, "programs_built_in_path": len(built),
+                    "programs": program_reports(svc.sampler)}))
     for rec in results:
         if not (rec["finite"] and rec["observed_exact"] and rec["gap_nonzero"]):
             fail(f"bad inpainting output: {rec}")
-    if launches != expected:
-        fail(f"kernel launches {launches} != {expected}: the path skipped the kernel")
+    if launches != expected or built:
+        fail(f"kernel launches {launches} != {expected} or programs built in the path "
+             f"({len(built)}): the path skipped the kernel or the precompiled programs")
     if not set(rounds) <= set(batches):
         fail(f"rounds of {sorted(set(rounds))} rows; the kernel was checked at {batches}")
-    return launches, results[0]["rtf"], answers
+
+    log("== phase 5(d): request (a)'s round: the program against heun_sample run eagerly on "
+        "the same noise; the program built with the plain version against the kernel's")
+    cmp, (y, m, smooth, prior, churn) = program_vs_eager(
+        torch, fa, np, svc, calls[0][:4], card, "a_centre_gap_1500ms")
+    cmp["observed_exact"] = results[0]["observed_exact"]
+    cmp["eager_rtf"] = results[0]["seconds_of_audio"] / cmp["eager_trajectory_s"]
+    cmp["program_rtf"] = results[0]["rtf"]
+    kernel_prog = svc._compiled_for_batch(1)
+    with plain_forced(fa):
+        n0 = fa.launch_count()
+        plain_prog = svc.sampler.compile_inpainting(y, m)
+        plain = plain_prog.run(prior, churn, y, m, smooth).float().cpu().numpy()
+        torch.cuda.synchronize()
+        plain_launches = fa.launch_count() - n0
+    got = calls[0][3]
+    rec = {"check": "program_kernel_vs_plain", "request": "a_centre_gap_1500ms",
+           "rel_err": float(np.abs(got - plain).max() / np.abs(plain).max()), "tol": BF16_TOL,
+           "plain_launches": plain_launches, "plain_program": plain_prog.report(),
+           "card": card}
+    log(json.dumps(rec))
+    if not (plain_prog is not kernel_prog and plain_launches == 0
+            and plain_prog.launches_per_run() == 0 and rec["rel_err"] <= BF16_TOL
+            and cmp["observed_exact"] and np.isfinite(plain).all()):
+        fail(f"the plain-version program: {rec}")
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, results[0]["rtf"], answers, {"program_vs_eager": cmp,
+                                                   "kernel_vs_plain_rel_err": rec["rel_err"]}
 
 
 def phase_serving_44k(torch, fa, np, work, card):
@@ -606,13 +772,17 @@ def phase_serving_44k(torch, fa, np, work, card):
     t0 = time.time()
     svc.precompile()
     log(json.dumps({"check": "precompile", "wall_s": time.time() - t0,
-                    "max_batch": svc.max_batch, "card": card}))
+                    "max_batch": svc.max_batch, "programs": program_reports(svc.sampler),
+                    "card": card}))
 
-    rounds, run = [], svc._run_batch
+    rounds, calls, run = [], [], svc._run_batch
 
     def counted(xb, mb, seed):
         rounds.append(xb.shape[0])
-        return run(xb, mb, seed)
+        t1 = time.time()
+        out = run(xb, mb, seed)
+        calls.append((xb, mb, seed, out, time.time() - t1))
+        return out
 
     svc._run_batch = counted
     results, inpaint = {}, svc.inpaint
@@ -637,16 +807,18 @@ def phase_serving_44k(torch, fa, np, work, card):
     a44 = music(np, n44, fs, seed=45)
 
     torch.cuda.synchronize()
-    fa.reset_launch_count()          # the 44 kHz serving path starts here
-    t0 = time.time()
-    svc.inpaint_file(src, m48, dst, seed=1)
-    wall_file = time.time() - t0
-    rounds_file = list(rounds)
-    out_file = results["out"]
-    t0 = time.time()
-    out44 = svc.inpaint(a44, m44, fs, seed=2)
-    wall44 = time.time() - t0
-    launches = fa.launch_count()     # ... and ends here
+    with built_programs() as built:
+        fa.reset_launch_count()          # the 44 kHz serving path starts here
+        t0 = time.time()
+        svc.inpaint_file(src, m48, dst, seed=1)
+        wall_file = time.time() - t0
+        rounds_file = list(rounds)
+        out_file = results["out"]
+        t0 = time.time()
+        out44 = svc.inpaint(a44, m44, fs, seed=2)
+        wall44 = time.time() - t0
+        torch.cuda.synchronize()
+        launches = fa.launch_count()     # ... and ends here
 
     x_in, rate_in = audio_io.read(src)
     x_out, rate_out = audio_io.read(dst)
@@ -664,7 +836,9 @@ def phase_serving_44k(torch, fa, np, work, card):
                     np.abs(out_file[a:b]).max() > 0 for a, b in gaps48)),
                 "gap_rms": float(np.sqrt(np.mean(out_file[gap48] ** 2)))}
     rec44 = {"request": "a44_centre_gap_1500ms", "seconds_of_audio": n44 / fs,
-             "rounds": rounds[len(rounds_file):], "wall_s": wall44, "rtf": n44 / fs / wall44,
+             "rounds": rounds[len(rounds_file):],
+             "round_s": [c[4] for c in calls[len(rounds_file):]],
+             "wall_s": wall44, "rtf": n44 / fs / wall44,
              "finite": bool(np.isfinite(out44).all()),
              "observed_exact": bool(np.array_equal(out44[~gap44], a44[~gap44])),
              "gap_nonzero": bool(np.abs(out44[gap44]).max() > 0),
@@ -673,19 +847,28 @@ def phase_serving_44k(torch, fa, np, work, card):
     for r in (rec_file, rec44):
         log(json.dumps({**r, "card": card}))
     log(json.dumps({"check": "serving_44k_launches", "launches": launches, "expected": expected,
-                    "rounds": len(rounds), "score_calls_per_round": steps}))
+                    "rounds": len(rounds), "score_calls_per_round": steps,
+                    "programs_built_in_path": len(built),
+                    "programs": program_reports(svc.sampler)}))
     ok = (rate_in == rate_out == fs48 and len(x_out) == len(x_in) == n48
           and rec_file["finite"] and rec_file["observed_exact_in_memory"]
           and rec_file["far_max_abs_err_in_file"] <= LSB and rec_file["gap_nonzero"]
           and rec44["finite"] and rec44["observed_exact"] and rec44["gap_nonzero"]
-          and set(rounds) == {1} and launches == expected)
+          and set(rounds) == {1} and launches == expected and not built)
     if not ok:
-        fail(f"44 kHz serving: {rec_file} {rec44} launches {launches} != {expected}?")
+        fail(f"44 kHz serving: {rec_file} {rec44} launches {launches} != {expected}, "
+             f"programs built in the path {len(built)}?")
+    log("== phase 5b(d): the 44.1 kHz request's round: the program against heun_sample run "
+        "eagerly on the same noise")
+    cmp, _ = program_vs_eager(torch, fa, np, svc, calls[-1][:4], card, "a44_centre_gap_1500ms")
+    cmp["observed_exact"] = rec44["observed_exact"]
+    cmp["eager_rtf"] = rec44["seconds_of_audio"] / cmp["eager_trajectory_s"]
+    cmp["program_rtf"] = rec44["rtf"]
     del svc
     gc.collect()
     torch.cuda.empty_cache()
     return launches, timing, {"rtf_file_48k": rec_file["rtf"], "rtf_44k_request": rec44["rtf"],
-                              "autotune_fit": fit}
+                              "autotune_fit": fit, "program_vs_eager": cmp}
 
 
 # ---------------------------------------------------------------- training
@@ -1068,6 +1251,9 @@ F32_TOL = 1e-4             # f32 (TF32 off) comparisons of phase 7, max|d| / max
 # 7g's service: the served flagship at 4 deterministic steps
 SERVE_CP = ["tester.T=4", "tester.diff_params.same_as_training=False",
             "tester.diff_params.Schurn=0.0"]
+# 7c's service: the served flagship at 8 steps (cut from 35 for the time
+# budget), held against the one-rank service at the same settings
+SERVE_DP = ["tester.T=8"]
 
 
 def free_port():
@@ -1178,23 +1364,40 @@ def one_rank_steps(torch, np, corpus, work):
     return batches, draws, ref
 
 
-def run_ranks(torch, np, work, inputs, timeout=900):
+def start_ranks(work):
     """Start PAR_WORLD copies of this script as the ranks of a process group
-    (``--rank R WORKDIR``); returns their JSON results. A rank that fails or
-    outlives ``timeout`` fails the phase; no rank is left running."""
-    import pickle
+    (``--rank R WORKDIR``); each imports its modules, then waits for
+    ``post_inputs``. Returns the processes."""
     import subprocess
     os.makedirs(work, exist_ok=True)
-    with open(os.path.join(work, "inputs.pkl"), "wb") as f:
-        pickle.dump(inputs, f)
     port = free_port()
     procs = []
     for r in range(PAR_WORLD):
-        env = dict(os.environ, **rank_env(r, PAR_WORLD, port))
+        # the ranks run eagerly beside this process's work on the same card:
+        # expandable segments keep their reserved memory near what they use
+        env = dict(os.environ, **rank_env(r, PAR_WORLD, port),
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
         with open(os.path.join(work, f"rank{r}.log"), "w") as out:
             procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank",
                                            str(r), work], env=env, stdout=out,
                                           stderr=subprocess.STDOUT))
+    return procs
+
+
+def post_inputs(work, inputs):
+    """The ranks' inputs, written whole before a rank can see the file."""
+    import pickle
+    tmp = os.path.join(work, "inputs.pkl.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(inputs, f)
+    os.replace(tmp, os.path.join(work, "inputs.pkl"))
+
+
+def join_ranks(work, procs, timeout=900):
+    """Wait for the ranks of ``start_ranks``; returns their JSON results. A
+    rank that fails or outlives ``timeout`` fails the phase; no rank is left
+    running."""
+    import subprocess
     try:
         deadline = time.time() + timeout
         for p in procs:
@@ -1232,9 +1435,14 @@ def rank_main(rank, work):
     from aid_tpu_torch.ops import fused_adaln as fa
     from aid_tpu_torch.parallel import mesh as pmesh
     from aid_tpu_torch.setup import resolve_device
+    from aid_tpu_torch.serving import InpaintingService  # noqa: F401 (imported while waiting)
+    from aid_tpu_torch.training.trainer import Trainer  # noqa: F401
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    with open(os.path.join(work, "inputs.pkl"), "rb") as f:
+    path = os.path.join(work, "inputs.pkl")
+    while not os.path.exists(path):              # the parent posts them; no CUDA until then
+        time.sleep(0.1)
+    with open(path, "rb") as f:
         inp = pickle.load(f)
     pmesh.init_distributed(enable=True)
     world = dist.get_world_size()
@@ -1248,11 +1456,20 @@ def rank_main(rank, work):
         y, yp = fa._fused_cuda(x, inv, mod, "tanh"), fa.fused_plain(x, inv, mod, "tanh")
     out["kernel_vs_plain"] = {"ok": bf16_ulp_ok(y, yp),
                               "max_abs_err": (y.float() - yp.float()).abs().max().item()}
-    out["train"] = rank_train(torch, fa, np, inp, rank, world, work)
-    out["serve"] = rank_serve(torch, fa, np, inp)
-    out["tp"], out["cp"] = rank_scores(torch, fa)
-    out["full_cp"] = rank_full_cp(torch, fa)
-    out["serve_cp"] = rank_serve_cp(torch, fa, np, inp)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.time()
+        res = fn(*a)
+        seconds[name] = time.time() - t0
+        return res
+
+    out["train"] = timed("7b", rank_train, torch, fa, np, inp, rank, world, work)
+    out["serve"] = timed("7c", rank_serve, torch, fa, np, inp, rank, work)
+    out["tp"], out["cp"] = timed("7d-e", rank_scores, torch, fa)
+    out["full_cp"] = timed("7f", rank_full_cp, torch, fa)
+    out["serve_cp"] = timed("7g", rank_serve_cp, torch, fa, np, inp)
+    out["seconds"] = seconds
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -1296,12 +1513,13 @@ def rank_train(torch, fa, np, inp, rank, world, work):
     return res
 
 
-def rank_serve(torch, fa, np, inp):
+def rank_serve(torch, fa, np, inp, rank, work):
     """7c: phase 5's request (b) served by shard() over dp (one row of each
-    2-row round per rank)."""
+    2-row round per rank) at SERVE_DP's settings; the answer is saved for
+    the parent to hold against the one-rank service's."""
     from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
     from aid_tpu_torch.serving import InpaintingService
-    svc = InpaintingService.from_config([])
+    svc = InpaintingService.from_config(SERVE_DP)
     svc.network.init_weights(0, gate_scale=MAIN_SCALE)   # phase 5's weights
     svc.shard()
     rounds, run = [], svc._run_batch
@@ -1318,18 +1536,34 @@ def rank_serve(torch, fa, np, inp):
     got = svc.inpaint(req["audio"], req["mask"], req["fs"], seed=1)
     wall = time.time() - t0
     launches = fa.launch_count()                 # ... and ends here
-    ref = torch.from_numpy(req["answer"])
+    np.save(os.path.join(work, f"serve_dp_rank{rank}.npy"), got)
     obs = req["mask"] > 0.5
     steps = 2 * svc.sampler.cfg.T - 1
-    rec = {"rounds": rounds, "max_batch": svc.max_batch, "wall_s": wall,
-           "rtf": len(req["audio"]) / req["fs"] / wall, "rel_err": rel(torch.from_numpy(got), ref),
+    rec = {"T": svc.sampler.cfg.T, "rounds": rounds, "max_batch": svc.max_batch,
+           "wall_s": wall, "rtf": len(req["audio"]) / req["fs"] / wall,
            "observed_exact": bool(np.array_equal(got[obs], req["audio"][obs])),
            "finite": bool(np.isfinite(got).all()), "launches": launches,
-           "expected_launches": 90 * steps * len(rounds)}
+           "expected_launches": 90 * steps * len(rounds),
+           "programs": len(svc.sampler._programs)}
     del svc
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+def serve_dp_reference(torch, request_b):
+    """7c's reference: request (b) answered by the one-rank service at
+    SERVE_DP's settings (its precompiled programs)."""
+    from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
+    from aid_tpu_torch.serving import InpaintingService
+    svc = InpaintingService.from_config(SERVE_DP)
+    svc.network.init_weights(0, gate_scale=MAIN_SCALE)   # phase 5's weights
+    svc.precompile()
+    ans = svc.inpaint(request_b["audio"], request_b["mask"], request_b["fs"], seed=1)
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ans
 
 
 def rank_scores(torch, fa):
@@ -1469,25 +1703,39 @@ def rank_serve_cp(torch, fa, np, inp):
     return rec
 
 
-def phase_parallel(torch, fa, np, work, card, request_a, request_b):
-    """Phase 7: 7a in this process; 7b-7g on PAR_WORLD ranks sharing the
-    card (gloo), held against one rank."""
+def phase_parallel(torch, fa, np, work, card, request_a, request_b, before, after):
+    """Phase 7: the one-rank training reference, then 7b-7g on PAR_WORLD
+    ranks sharing the card (gloo); while they run, this process runs
+    ``before()`` (light on device memory: the ranks' training steps peak
+    first), 7a, 7c's one-rank reference and ``after()``. Every rank path
+    is held against one rank. Returns the launches, the largest kernel
+    error and what ``before`` and ``after`` returned."""
     log("== phase 7: multi-device training and serving over torch.distributed")
     corpus = os.path.join(work, "maestro")
     t_phase = time.time()
-    entry = phase_parallel_entry(torch, fa, corpus, work, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"== phase 7b reference: the one-rank trainer's 2 steps at batch {TRAIN_BATCH}, f32, "
-        "TF32 off")
-    batches, draws, ref = one_rank_steps(torch, np, corpus, work)
-    log(f"== phase 7b-7g: {PAR_WORLD} ranks on one card over gloo: dp and fsdp steps, "
-        "shard() over dp on phase 5's request (b), a tp=2 and a cp=2 guided score, a "
-        "full-score cp=2 score, shard() over (dp=1, cp=2) on phase 5's request (a) at T=4")
-    t0 = time.time()
-    ranks = run_ranks(torch, np, os.path.join(work, "ranks"),
-                      {"corpus": corpus, "batches": batches, "draws": draws,
-                       "request_a": request_a, "request_b": request_b})
+    rank_dir = os.path.join(work, "ranks")
+    procs = start_ranks(rank_dir)                # importing while the reference trains
+    with killed_on_failure(procs):
+        log(f"== phase 7b reference: the one-rank trainer's 2 steps at batch {TRAIN_BATCH}, "
+            "f32, TF32 off")
+        batches, draws, ref = one_rank_steps(torch, np, corpus, work)
+        log(f"== phase 7b-7g: {PAR_WORLD} ranks on one card over gloo: dp and fsdp steps, "
+            f"shard() over dp on phase 5's request (b) at {' '.join(SERVE_DP)}, a tp=2 and "
+            "a cp=2 guided score, a full-score cp=2 score, shard() over (dp=1, cp=2) on phase "
+            "5's request (a) at T=4; this process meanwhile: 10a, 7a, 7c's reference, 8a-8b")
+        t0 = time.time()
+        post_inputs(rank_dir, {"corpus": corpus, "batches": batches, "draws": draws,
+                               "request_a": request_a, "request_b": request_b})
+        first = before()
+        entry = phase_parallel_entry(torch, fa, corpus, work, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"== phase 7c reference: request (b) by the one-rank service "
+            f"({' '.join(SERVE_DP)})")
+        serve_ref = serve_dp_reference(torch, request_b)
+        last = after()
+        parent_s = time.time() - t0
+    ranks = join_ranks(rank_dir, procs)
     ranks_wall = time.time() - t0
     launches, problems = entry["launches"], []
     for r in ranks:
@@ -1498,7 +1746,7 @@ def phase_parallel(torch, fa, np, work, card, request_a, request_b):
             problems.append(f"rank {r['rank']}: route or kernel check")
     summary = {}
     for mode in ("dp", "fsdp"):
-        got = torch.load(os.path.join(work, "ranks", f"{mode}_params.pt"))
+        got = torch.load(os.path.join(rank_dir, f"{mode}_params.pt"))
         whole = ref["params"]
         names = list(got)
         moved = max((b - a).abs().max().item() for a, b in zip(ref["p0"], whole))
@@ -1530,13 +1778,16 @@ def phase_parallel(torch, fa, np, work, card, request_a, request_b):
                          "peak_gb_per_rank": max(rec["peak_gb"]),
                          "resident_gb_per_rank": max(rec["resident_gb"])}
     serve = [r["serve"] for r in ranks]
+    answers = [np.load(os.path.join(rank_dir, f"serve_dp_rank{r}.npy"))
+               for r in range(PAR_WORLD)]
     rec = {"check": "shard_dp_serving", **serve[0], "tol": BF16_TOL,
-           "ranks_agree": all(s["rel_err"] == serve[0]["rel_err"] for s in serve),
+           "rel_err": rel(torch.from_numpy(answers[0]), torch.from_numpy(serve_ref)),
+           "ranks_agree": all(np.array_equal(a, answers[0]) for a in answers),
            "launches": [s["launches"] for s in serve], "card": card}
     log(json.dumps(rec))
     launches += sum(s["launches"] for s in serve)
     if not (rec["finite"] and rec["observed_exact"] and rec["rel_err"] <= BF16_TOL
-            and rec["ranks_agree"] and rec["rounds"] == [2, 2]
+            and rec["ranks_agree"] and rec["rounds"] == [2, 2] and rec["programs"] == 0
             and all(s["launches"] == s["expected_launches"] for s in serve)):
         problems.append("dp serving against the one-rank answer")
     summary["dp_serving_rtf"] = serve[0]["rtf"]
@@ -1579,11 +1830,13 @@ def phase_parallel(torch, fa, np, work, card, request_a, request_b):
         problems.append("(dp=1, cp=2) serving against the one-rank answer")
     summary["cp_serving_rtf"] = serve[0]["rtf"]
     summary.update(fsdp_entry_step_s=entry["step_s"], fsdp_entry_peak_gb=entry["peak_gb"],
-                   ranks_wall_s=ranks_wall, phase_s=time.time() - t_phase, card=card)
+                   ranks_wall_s=ranks_wall, parent_meanwhile_s=parent_s,
+                   rank_seconds=[r["seconds"] for r in ranks],
+                   phase_s=time.time() - t_phase, card=card)
     log(json.dumps({"parallel": summary}))
     if problems:
         fail("phase 7: " + "; ".join(problems))
-    return launches, max(r["kernel_vs_plain"]["max_abs_err"] for r in ranks)
+    return launches, max(r["kernel_vs_plain"]["max_abs_err"] for r in ranks), first, last
 
 
 # -------------------------------------------------------------- evaluation
@@ -1602,19 +1855,66 @@ def eval_overrides(corpus, model_dir, *extra):
 
 @contextlib.contextmanager
 def counting_denoiser():
-    """Counts ``edm.denoiser`` calls: the samplers look it up at call time."""
+    """Counts the denoiser evaluations the device runs: ``edm.denoiser``
+    calls (the samplers look it up at call time) except those a CUDA graph
+    capture records, plus those each replay of a program's captured step
+    runs."""
+    import torch
     from aid_tpu_torch.diffusion import edm
-    orig, calls = edm.denoiser, [0]
+    from aid_tpu_torch.sampling import program
+    orig, orig_step, calls = edm.denoiser, program.HeunProgram._step, [0]
 
     def counted(*a, **k):
-        calls[0] += 1
+        if not torch.cuda.is_current_stream_capturing():
+            calls[0] += 1
         return orig(*a, **k)
 
-    edm.denoiser = counted
+    def step(self, name):
+        if self.graphs is not None:
+            calls[0] += self.scores[name]
+        return orig_step(self, name)
+
+    edm.denoiser, program.HeunProgram._step = counted, step
     try:
         yield calls
     finally:
-        edm.denoiser = orig
+        edm.denoiser, program.HeunProgram._step = orig, orig_step
+
+
+class DemoMemory:
+    """Device memory around each in-training demo (``Trainer.heavy_logging``
+    patched while the context is open): the training run's peak before it,
+    what was allocated before it, and what stays allocated and reserved
+    after it (the tester releases the demo's program when it is done)."""
+
+    def __init__(self, torch):
+        self.torch, self.recs = torch, []
+
+    def __enter__(self):
+        from aid_tpu_torch.training.trainer import Trainer
+        torch, recs, orig = self.torch, self.recs, Trainer.heavy_logging
+        self.orig = orig
+        torch.cuda.reset_peak_memory_stats()      # the training run's own peak
+
+        def heavy_logging(tr):
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+            orig(tr)
+            torch.cuda.synchronize()
+            recs.append({"it": tr.it, "training_peak_bytes": peak, "allocated_before": base,
+                         "held_after_bytes": torch.cuda.memory_allocated() - base,
+                         "reserved_growth_bytes": torch.cuda.memory_reserved() - reserved})
+
+        Trainer.heavy_logging = heavy_logging
+        return self
+
+    def __exit__(self, *exc):
+        from aid_tpu_torch.training.trainer import Trainer
+        Trainer.heavy_logging = self.orig
+
+    def report(self):
+        return self.recs
 
 
 def run_test_main(overrides):
@@ -1672,10 +1972,9 @@ def check_metrics(root):
     return scored
 
 
-def phase_testing(torch, fa, np, work, card):
-    """8a-8c on the main path (launches counted), then 8d."""
-    from aid_tpu_torch import train as ttrain
-    from aid_tpu_torch.data import audio_io
+def phase_testing_ab(torch, fa, np, work, card):
+    """8a-8b on the evaluation path, launches counted (beside phase 7's
+    ranks: each tester's programs are released as soon as it is done)."""
     from aid_tpu_torch.utils import checkpoint as ckpt
     corpus, md = os.path.join(work, "maestro"), os.path.join(work, "main")
     latest = ckpt.list_checkpoints(md, "22k_8s")[-1]
@@ -1683,75 +1982,120 @@ def phase_testing(torch, fa, np, work, card):
     log(f"== phase 8a: aid_tpu_torch.test.main, inpainting at T=35 on one test file, weights "
         f"from the latest checkpoint in {md}")
     torch.cuda.synchronize()
-    fa.reset_launch_count()                      # the evaluation main path starts here
-    with counting_denoiser() as calls, checked_writes(np) as written:
+    fa.reset_launch_count()                      # 8a-8b's evaluation path starts here
+    with counting_denoiser() as calls, checked_writes(np) as written, \
+            built_programs() as built:
         t0 = time.time()
         ta = run_test_main(eval_overrides(corpus, md, "tester.modes=['inpainting']"))
-        wall_a, calls_a = time.time() - t0, calls[0]
+        wall_a, calls_a, built_a = time.time() - t0, calls[0], list(built)
+        ta.sampler.release_programs()
+        torch.cuda.empty_cache()
         log(f"== phase 8b: aid_tpu_torch.test.main, the other nine modes at T={EVAL_T}")
         t0 = time.time()
         tb = run_test_main(eval_overrides(
             corpus, md, f"tester.T={EVAL_T}", f"tester.modes={OTHER_MODES}".replace(" ", ""),
             "tester.unconditional.num_samples=1", "tester.autoregressive.num_samples=2"))
-        wall_b, calls_b = time.time() - t0, calls[0] - calls_a
-        log("== phase 8c: aid_tpu_torch.train.main, one step with heavy_log_interval 1 (the "
-            "in-training demo)")
-        demo_md = os.path.join(work, "demo")
-        t0 = time.time()
-        if ttrain.main(train_overrides(corpus, demo_md, "exp.total_its=1",
-                                       "logging.heavy_log_interval=1", f"tester.T={EVAL_T}",
-                                       "tester.unconditional.num_samples=1")) != 0:
-            fail("the demo's train.main returned non-zero")
-        wall_c, calls_c = time.time() - t0, calls[0] - calls_a - calls_b
-    torch.cuda.synchronize()
-    launches = fa.launch_count()                 # ... and ends here
+        wall_b, calls_b, built_b = time.time() - t0, calls[0] - calls_a, built[len(built_a):]
+        tb.sampler.release_programs()
+        torch.cuda.synchronize()
+        launches = fa.launch_count()             # ... and ends here
 
     loaded = all(torch.equal(p, ema[n].to(p.dtype).to(p.device))
                  for n, p in ta.network.named_parameters())
     # trajectories of 8b: unconditional 1, MUSHRA 4, short gaps, spectrogram,
     # bwe, declipping, comp_sens, phase retrieval 1 each, autoregressive 2
     trajectories_b = 1 + 4 + 6 + 2
-    expect_calls = {"a": 2 * 35 - 1, "b": (2 * EVAL_T - 1) * trajectories_b,
-                    "c": 2 * EVAL_T - 1}
-    got_calls = {"a": calls_a, "b": calls_b, "c": calls_c}
+    # each program built (a: inpainting; b: unconditional and inpainting,
+    # shared by the modes of one shape) ran its two steps once, eagerly,
+    # before its capture
+    builds = {"a": len(built_a), "b": len(built_b)}
+    expect_calls = {"a": 2 * 35 - 1 + warmup_scores(built_a),
+                    "b": (2 * EVAL_T - 1) * trajectories_b + warmup_scores(built_b)}
+    got_calls = {"a": calls_a, "b": calls_b}
     per_fwd = launches_per_forward(ta.network)                  # 90 on the flagship
-    expected_launches = per_fwd * (sum(got_calls.values()) + 2)  # + one remat training step
     base = ta.base_dir
     scored = check_metrics(base)
-    demo_wav = os.path.join(demo_md, "heavy_logging", "it_1", "uncond_0.wav")
-    if demo_wav not in written:
-        fail(f"the in-training demo wrote no {demo_wav}")
-    demo = audio_io.read(demo_wav)[0]
-    orig = audio_io.read(os.path.join(base, "inpainting", "original", "test_piece.wav"))[0]
-    rec = audio_io.read(os.path.join(base, "inpainting", "reconstructed", "test_piece.wav"))[0]
+    orig = audio_io_read(os.path.join(base, "inpainting", "original", "test_piece.wav"))
+    rec = audio_io_read(os.path.join(base, "inpainting", "reconstructed", "test_piece.wav"))
     gap = np.flatnonzero(ta.prepare_mask()[0] == 0)
     hann = ta.sampler.hann_size
     far = np.ones(len(orig), bool)
     far[max(gap[0] - hann, 0):gap[-1] + 1 + hann] = False
     far_err = float(np.abs(rec[far] - orig[far]).max())
     audio_s = ta.audio_len / ta.fs
-    rec_a = {"check": "testing", "loaded_latest_checkpoint": os.path.basename(latest),
+    rec_a = {"check": "testing_a_b", "loaded_latest_checkpoint": os.path.basename(latest),
              "weights_equal_checkpoint_ema": loaded, "inpainting_T35_s": ta.seconds["inpainting"],
              "inpainting_rtf": audio_s / ta.seconds["inpainting"], "main_a_wall_s": wall_a,
-             f"seconds_per_mode_T{EVAL_T}": tb.seconds, "main_b_wall_s": wall_b, "demo_main_wall_s": wall_c,
-             "denoiser_calls": got_calls, "expected_calls": expect_calls, "launches": launches,
-             "launches_per_denoiser_call": per_fwd, "expected_launches": expected_launches,
-             "wavs_written_finite": len(written),
+             f"seconds_per_mode_T{EVAL_T}": tb.seconds, "main_b_wall_s": wall_b,
+             "denoiser_calls": got_calls, "expected_calls": expect_calls,
+             "programs_built": builds, "launches": launches,
+             "launches_per_denoiser_call": per_fwd, "expected_launches": per_fwd * sum(
+                 got_calls.values()), "wavs_written_finite": len(written),
              "metrics_files": scored, "observed_max_abs_err": far_err, "observed_tol": LSB,
-             "gap_rms": float(np.sqrt(np.mean(rec[gap] ** 2))),
-             "demo_rms": float(np.sqrt(np.mean(demo ** 2))), "card": card}
+             "gap_rms": float(np.sqrt(np.mean(rec[gap] ** 2))), "card": card}
     log(json.dumps(rec_a))
-    ok = (loaded and got_calls == expect_calls and launches == expected_launches
+    ok = (loaded and got_calls == expect_calls and launches == rec_a["expected_launches"]
+          and builds == {"a": 1, "b": 2}
           and set(tb.seconds) == set(OTHER_MODES) and scored == 6 and far_err <= LSB
-          and rec_a["gap_rms"] > 0 and rec_a["demo_rms"] > 0)
+          and rec_a["gap_rms"] > 0)
     if not ok:
         fail(f"evaluation path: {rec_a}")
     del ta, tb
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, per_fwd, {k: rec_a[k] for k in (
+        "inpainting_T35_s", "inpainting_rtf", f"seconds_per_mode_T{EVAL_T}")}
+
+
+def audio_io_read(path):
+    from aid_tpu_torch.data import audio_io
+    return audio_io.read(path)[0]
+
+
+def phase_testing_c(torch, fa, np, work, card, ab):
+    """8c on the evaluation path (launches counted), then 8d; ``ab`` is
+    what ``phase_testing_ab`` returned."""
+    from aid_tpu_torch import train as ttrain
+    launches_ab, per_fwd, summary = ab
+    corpus = os.path.join(work, "maestro")
+    log("== phase 8c: aid_tpu_torch.train.main, one step with heavy_log_interval 1 (the "
+        "in-training demo)")
+    demo_md = os.path.join(work, "demo")
+    demo_peak = DemoMemory(torch)
+    torch.cuda.synchronize()
+    fa.reset_launch_count()                      # 8c's evaluation path starts here
+    with counting_denoiser() as calls, checked_writes(np) as written, \
+            built_programs() as built, demo_peak:
+        t0 = time.time()
+        if ttrain.main(train_overrides(corpus, demo_md, "exp.total_its=1",
+                                       "logging.heavy_log_interval=1", f"tester.T={EVAL_T}",
+                                       "tester.unconditional.num_samples=1")) != 0:
+            fail("the demo's train.main returned non-zero")
+        wall_c = time.time() - t0
+        torch.cuda.synchronize()
+        launches = fa.launch_count()             # ... and ends here
+    demo_wav = os.path.join(demo_md, "heavy_logging", "it_1", "uncond_0.wav")
+    if demo_wav not in written:
+        fail(f"the in-training demo wrote no {demo_wav}")
+    demo = audio_io_read(demo_wav)
+    expect = 2 * EVAL_T - 1 + warmup_scores(built)
+    rec = {"check": "testing_c", "demo_main_wall_s": wall_c, "denoiser_calls": calls[0],
+           "expected_calls": expect, "programs_built": len(built),
+           "demo_program": built, "demo_memory": demo_peak.report(),
+           "launches": launches, "expected_launches": per_fwd * (calls[0] + 2),
+           "wavs_written_finite": len(written),
+           "demo_rms": float(np.sqrt(np.mean(demo ** 2))), "card": card}
+    log(json.dumps(rec))
+    # + 2: one remat training step's forward and recomputation
+    if not (calls[0] == expect and len(built) == 1 and launches == rec["expected_launches"]
+            and rec["demo_rms"] > 0):
+        fail(f"evaluation path (the in-training demo): {rec}")
+    gc.collect()
+    torch.cuda.empty_cache()
     plain = phase_testing_plain(torch, fa, np, corpus, work)
-    return launches, {k: rec_a[k] for k in ("inpainting_T35_s", "inpainting_rtf",
-                                            f"seconds_per_mode_T{EVAL_T}")} | plain
+    return launches_ab + launches, summary | plain | {"demo_memory": demo_peak.report(),
+                                                      "demo_program_memory_bytes": [
+                                                          r["memory_bytes"] for r in built]}
 
 
 def phase_testing_plain(torch, fa, np, corpus, work):
@@ -1856,7 +2200,7 @@ def phase_learning(torch, fa, np, work, card, launches):
         f"sampling T=25 order 2 xi=0.25 in {cfg['dtype']}")
     torch.backends.cudnn.allow_tf32 = True       # as a user runs the script (README, TF32)
     try:
-        with counted(fa, launches, "learning"):
+        with counted(fa, launches, "learning"), built_programs() as built:
             res = e2e.run(cfg, device="cuda")
     finally:
         torch.backends.cudnn.allow_tf32 = False
@@ -1878,7 +2222,9 @@ def phase_learning(torch, fa, np, work, card, launches):
     err = max(check_launch_shapes(torch, fa, shapes, gelu, torch.float32, [e2e.BATCH], gen),
               check_launch_shapes(torch, fa, shapes, gelu, torch.bfloat16, [1], gen))
     scores = 2 * int(res["args"].tester.T) - 1
-    expected = per_fwd * (res["its"] + 2 * scores)
+    # two sampling runs (untrained, trained), each through a program whose
+    # warm-up evaluated its steps once
+    expected = per_fwd * (res["its"] + 2 * scores + warmup_scores(built))
     rec = {"check": "learning_gate", **{k: res[k] for k in (
         "its", "L", "dtype", "snr_untrained_db", "snr_trained_db", "snr_gain_db",
         "lsd_gap_trained", "lsd_gap_untrained", "lsd_gap_ratio", "s_per_it", "train_s",
@@ -1886,11 +2232,12 @@ def phase_learning(torch, fa, np, work, card, launches):
         "launches_per_sampling_run")},
            "gates": {"min_snr_gain_db": cfg["min_gain_db"], "max_lsd_ratio": cfg["max_lsd_ratio"]},
            "pass": res["ok"], "launches": launches["learning"], "expected_launches": expected,
+           "programs": built,
            "plain_vs_kernel_rel_err": rel_plain, "plain_launches": plain_launches,
            "tol": BF16_TOL, "launch_shapes": {f"{r}x{c}": n for (r, c), n in sorted(shapes.items())},
            "launch_shapes_max_abs_err": err, "card": card}
     log(json.dumps(rec))
-    if not (res["ok"] and rel_plain <= BF16_TOL and plain_launches == 0
+    if not (res["ok"] and rel_plain <= BF16_TOL and plain_launches == 0 and len(built) == 2
             and launches["learning"] == expected and np.isfinite(rec_plain).all()):
         fail(f"the learning gate: {rec}")
     del net, res
@@ -1899,26 +2246,15 @@ def phase_learning(torch, fa, np, work, card, launches):
     return err, rec
 
 
-def phase_tools(torch, fa, np, work, card):
-    """Phase 10 in ``work``, after phase 8: phase 6e's model directory
-    (``main``, its step-2 and step-4 checkpoints) is still there."""
-    log("== phase 10: the port learns; the user tools on the card")
-    t_phase = time.time()
-    launches, out = {}, {}
-    err, out["learning_gate"] = phase_learning(torch, fa, np, work, card, launches)
-    md = os.path.join(work, "main")
-    ck4 = os.path.join(md, "22k_8s-4.pt")
+def tools_evals(fa, np, md, ck4, synth, launches):
+    """10c-10d: both evaluation scripts on phase 6e's checkpoints."""
     per_fwd = FLAGSHIP_LAUNCHES
     scores = 2 * TOOLS_T - 1
-
-    log("== phase 10b: scripts/make_synth_corpus_torch.py writes two 19 s test files")
-    synth = os.path.join(work, "synth")
-    load_script("scripts/make_synth_corpus_torch.py").write_corpus(synth, 0, 2, 19.0)
-
+    out = {}
     log(f"== phase 10c: scripts/eval_checkpoints_torch.py on {md} (2 clips, EVAL_BATCH 2, "
         f"tester.T={TOOLS_T})")
     t0 = time.time()
-    with counted(fa, launches, "eval_checkpoints"):
+    with counted(fa, launches, "eval_checkpoints"), built_programs() as built:
         ledger = load_script("scripts/eval_checkpoints_torch.py").run(
             md, synth, 2, TOOLS_OV, device="cuda", env={"EVAL_BATCH": "2"})
     rows = ledger["rows"]
@@ -1935,21 +2271,40 @@ def phase_tools(torch, fa, np, work, card):
     if not ([r[0] for r in rows] == [2, 4] and ledger["n_clips"] == 2 and ema_diff > 0
             and os.path.exists(os.path.join(md, "eval_ledger.json"))
             and all(finite(*r) for r in rows) and finite(*ledger["masked_baseline"].values())
-            and launches["eval_checkpoints"] == per_fwd * scores * len(rows)):
+            and launches["eval_checkpoints"] == per_fwd * (scores * len(rows)
+                                                           + warmup_scores(built))):
         fail(f"eval_checkpoints: {ledger} launches {launches['eval_checkpoints']}")
 
     log(f"== phase 10d: scripts/eval_gap_sweep_torch.py on {ck4} (tester.T={TOOLS_T})")
     t0 = time.time()
-    with counted(fa, launches, "eval_gap_sweep"):
+    with counted(fa, launches, "eval_gap_sweep"), built_programs() as built:
         table = load_script("scripts/eval_gap_sweep_torch.py").run(ck4, synth, 2, TOOLS_OV,
                                                                     device="cuda")
     out["gap_sweep"] = {"rows": table["rows"], "wall_s": time.time() - t0}
     if not ([r[0] for r in table["rows"]] == [371, 743, 1486, 2962]
             and all(finite(*r) for r in table["rows"])
-            and launches["eval_gap_sweep"] == per_fwd * scores * 4):
+            and launches["eval_gap_sweep"] == per_fwd * (scores * 4 + warmup_scores(built))):
         fail(f"eval_gap_sweep: {table} launches {launches['eval_gap_sweep']}")
+    return out
 
-    out["demo"] = phase_demo(np, work, ck4)
+
+def phase_tools(torch, fa, np, work, card, gate, demos):
+    """Phase 10b-10g in ``work``, after phase 8: phase 6e's model directory
+    (``main``, its step-2 and step-4 checkpoints) is still there. ``gate``
+    is 10a's (max_abs_err, record, launches); ``demos`` 10e's processes,
+    started earlier (``start_demo``)."""
+    log("== phase 10b-10g: the user tools on the card")
+    t_phase = time.time()
+    err, gate_rec, launches = gate
+    launches, out = dict(launches), {"learning_gate": gate_rec}
+    md = os.path.join(work, "main")
+    ck4 = os.path.join(md, "22k_8s-4.pt")
+
+    log("== phase 10b: scripts/make_synth_corpus_torch.py writes two 19 s test files")
+    synth = os.path.join(work, "synth")
+    load_script("scripts/make_synth_corpus_torch.py").write_corpus(synth, 0, 2, 19.0)
+    out.update(tools_evals(fa, np, md, ck4, synth, launches))
+    out["demo"] = join_demo(np, demos)
 
     log(f"== phase 10f: scripts/serve_bench_torch.py, SERVE_REPS 1, the 22 kHz flagship "
         f"(tester.T={TOOLS_T})")
@@ -1969,43 +2324,65 @@ def phase_tools(torch, fa, np, work, card):
     return sum(launches.values()), err
 
 
-def phase_demo(np, work, ck4):
+def start_demo(work, mode, ck4=None):
     """10e: examples/demo_inpainting_torch.py as a user runs it, in its own
-    process: a 1500 ms time gap with phase 6e's step-4 checkpoint (observed
-    samples of the written files bit-exact), then --spectrogram."""
+    process: ``mode`` "time_gap" (a 1500 ms gap, phase 6e's step-4
+    checkpoint ``ck4``) or "spectrogram" (a --spectrogram box, seeded
+    weights). Returns {mode: (out dir, log, start time, process)}."""
+    import subprocess
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(work, f"demo_{mode}")
+    extra = ["--gap-ms", "1500", "--checkpoint", ck4] if mode == "time_gap" else ["--spectrogram"]
+    cmd = [sys.executable, os.path.join(here, "examples", "demo_inpainting_torch.py"),
+           "--T", str(TOOLS_T), "--out", d, *extra]
+    log(f"== phase 10e (started): {' '.join(cmd[1:])}")
+    log_path = os.path.join(work, f"demo_{mode}.log")
+    with open(log_path, "w") as out:
+        p = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+    return {mode: (d, log_path, time.time(), p)}
+
+
+def join_demo(np, procs, timeout=900):
+    """10e's checks: each demo (``start_demo``'s processes) exits 0; its
+    files are finite; the time-gap demo's observed samples are bit-exact in
+    the written files. No demo is left running."""
     import subprocess
     from aid_tpu_torch.data import audio_io
-    here = os.path.dirname(os.path.abspath(__file__))
     res = {}
-    for mode, extra in (("time_gap", ["--checkpoint", ck4, "--gap-ms", "1500"]),
-                        ("spectrogram", ["--spectrogram"])):
-        d = os.path.join(work, f"demo_{mode}")
-        cmd = [sys.executable, os.path.join(here, "examples", "demo_inpainting_torch.py"),
-               "--T", str(TOOLS_T), "--out", d, *extra]
-        log(f"== phase 10e: {' '.join(cmd[1:])}")
-        t0 = time.time()
-        p = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        wall = time.time() - t0
-        if p.returncode != 0:
-            fail(f"the demo ({mode}) exited {p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
-        sig = {n: audio_io.read(os.path.join(d, n + ".wav"))[0]
-               for n in ("original", "degraded", "reconstructed")}
-        rec = {"wall_s": wall, "finite": all(bool(np.isfinite(v).all()) for v in sig.values()),
-               "samples": len(sig["reconstructed"])}
-        if mode == "time_gap":
-            L, fs, hann = len(sig["original"]), 22050, 50
-            gap = int(1.5 * fs)
-            s = (L - gap) // 2
-            far = np.ones(L, bool)
-            far[s - hann:s + gap + hann] = False
-            rec["observed_bit_exact"] = bool(np.array_equal(sig["reconstructed"][far],
-                                                            sig["original"][far]))
-            rec["gap_rms"] = float(np.sqrt(np.mean(sig["reconstructed"][s:s + gap] ** 2)))
-        res[mode] = rec
-        log(json.dumps({"check": "demo", "mode": mode, **rec}))
-        if not (rec["finite"] and rec.get("observed_bit_exact", True)
-                and rec.get("gap_rms", 1.0) > 0):
-            fail(f"the demo ({mode}): {rec}")
+    try:
+        for mode, (d, log_path, t0, p) in procs.items():
+            try:
+                p.wait(timeout=max(1.0, t0 + timeout - time.time()))
+            except subprocess.TimeoutExpired:
+                fail(f"the demo ({mode}) outlived {timeout} s")
+            wall = time.time() - t0
+            if p.returncode != 0:
+                fail(f"the demo ({mode}) exited {p.returncode}:\n"
+                     f"{open(log_path).read()[-6000:]}")
+            sig = {n: audio_io.read(os.path.join(d, n + ".wav"))[0]
+                   for n in ("original", "degraded", "reconstructed")}
+            rec = {"wall_s_to_join": wall,
+                   "finite": all(bool(np.isfinite(v).all()) for v in sig.values()),
+                   "samples": len(sig["reconstructed"])}
+            if mode == "time_gap":
+                L, fs, hann = len(sig["original"]), 22050, 50
+                gap = int(1.5 * fs)
+                s = (L - gap) // 2
+                far = np.ones(L, bool)
+                far[s - hann:s + gap + hann] = False
+                rec["observed_bit_exact"] = bool(np.array_equal(sig["reconstructed"][far],
+                                                                sig["original"][far]))
+                rec["gap_rms"] = float(np.sqrt(np.mean(sig["reconstructed"][s:s + gap] ** 2)))
+            res[mode] = rec
+            log(json.dumps({"check": "demo", "mode": mode, **rec}))
+            if not (rec["finite"] and rec.get("observed_bit_exact", True)
+                    and rec.get("gap_rms", 1.0) > 0):
+                fail(f"the demo ({mode}): {rec}")
+    finally:
+        for _, _, _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     return res
 
 
@@ -2071,33 +2448,65 @@ def main():
     serve_batch = int(compose().network.get("serving_max_batch", 2))
     batches = sorted({1, serve_batch})
 
-    worst = phase_kernel(torch, fa, batches)
-    shapes = phase_denoiser(torch, fa, serve_batch)
+    with phase_time("2"):
+        worst = phase_kernel(torch, fa, batches)
+    with phase_time("3"):
+        shapes = phase_denoiser(torch, fa, serve_batch)
 
     log(f"== phase 4: kernel at every launch shape, checked at batch {batches}; "
         "timed per batch row over one flagship denoiser call (bf16, tanh: the "
         "served configuration)")
-    timing = time_kernel(torch, fa, shapes, "tanh", torch.bfloat16, batches)
+    with phase_time("4"):
+        timing = time_kernel(torch, fa, shapes, "tanh", torch.bfloat16, batches)
     log(json.dumps({"timing": "fused_adaln_fwd per denoiser call", **timing,
                     "card": card}))
     log("library_ms: null -- no single PyTorch call computes gelu(x * inv * mod)")
 
-    phase_options(torch, fa, card)
-    launches, rtf, answers = phase_serving(torch, fa, np, batches)
+    with phase_time("3b"):
+        phase_options(torch, fa, card)
+    with phase_time("5"):
+        launches, rtf, answers, programs_22k = phase_serving(torch, fa, np, batches, card)
     request_b = answers["b_four_25ms_gaps"]
-    log(json.dumps({"inpaint_rtf_request_a": rtf, "card": card}))
+    log(json.dumps({"inpaint_rtf_request_a": rtf, "programs_22k": programs_22k, "card": card}))
     work = os.path.join(here, "experiments", "chip_smoke_training")
     shutil.rmtree(work, ignore_errors=True)
+    demos = {}      # 10e's processes: started early, checked in phase 10
     try:
         os.makedirs(work)
-        launches_44k, timing_44k, serving_44k = phase_serving_44k(torch, fa, np, work, card)
+        with phase_time("5b"):
+            launches_44k, timing_44k, serving_44k = phase_serving_44k(torch, fa, np, work,
+                                                                      card)
         log(json.dumps({"serving_44k": serving_44k, "card": card}))
-        train_launches, train_err = phase_training(torch, fa, np, work, card, shapes)
-        parallel_launches, parallel_err = phase_parallel(
-            torch, fa, np, work, card, answers["a_centre_gap_1500ms"], request_b)
-        test_launches, testing = phase_testing(torch, fa, np, work, card)
-        tools_launches, tools_err = phase_tools(torch, fa, np, work, card)
+        with phase_time("6"):
+            train_launches, train_err = phase_training(torch, fa, np, work, card, shapes)
+
+        def learning():                  # the time-gap demo and 10a, beside phase 7's ranks
+            demos.update(start_demo(work, "time_gap",
+                                    os.path.join(work, "main", "22k_8s-4.pt")))
+            with phase_time("10a"):
+                log("== phase 10: the port learns; the user tools on the card")
+                launches = {}
+                err, rec = phase_learning(torch, fa, np, work, card, launches)
+            return err, rec, launches
+
+        def evaluation_ab():             # 8a-8b, beside phase 7's ranks
+            with phase_time("8a-b"):
+                return phase_testing_ab(torch, fa, np, work, card)
+
+        with phase_time("7-10a-8ab"):
+            parallel_launches, parallel_err, gate, testing_ab = phase_parallel(
+                torch, fa, np, work, card, answers["a_centre_gap_1500ms"], request_b,
+                learning, evaluation_ab)
+        demos.update(start_demo(work, "spectrogram"))    # beside 8c-8d and 10b-10d
+        with phase_time("8c-d"):
+            test_launches, testing = phase_testing_c(torch, fa, np, work, card, testing_ab)
+        with phase_time("10b-g"):
+            tools_launches, tools_err = phase_tools(torch, fa, np, work, card, gate, demos)
     finally:
+        for _, _, _, p in demos.values():          # none outlives the script
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({"testing": {**testing, "card": card}}))
     log(json.dumps({"launches_by_path": {"serving": launches, "serving_44k": launches_44k,
@@ -2105,6 +2514,8 @@ def main():
                                          "parallel": parallel_launches,
                                          "testing": test_launches,
                                          "tools": tools_launches}}))
+    log(json.dumps({"phase_seconds": PHASE_S, "total_s": time.time() - t_start,
+                    "card": card}))
 
     log("== phase 9: kernels")
     kernels = [{"name": "fused_adaln_fwd", "route": "triton",

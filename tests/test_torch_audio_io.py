@@ -18,6 +18,7 @@ import scipy.signal
 from aid_tpu.data import audio_io as jaudio
 from aid_tpu_torch.data import audio_io
 from tests import flac_fixture as ff
+from tests.torch_native import jax_native
 
 RATES = [(48000, 22050), (44100, 22050), (22050, 44100), (16000, 44100)]
 
@@ -26,7 +27,7 @@ RATES = [(48000, 22050), (44100, 22050), (22050, 44100), (16000, 44100)]
 def both_native():
     """Both packages' native libraries loaded, the FLAC caches empty."""
     assert audio_io._native() is not None, audio_io.native_status()
-    assert jaudio._native() is not None and hasattr(jaudio._native(), "aio_flac_info")
+    assert jax_native() is not None and hasattr(jaudio._native(), "aio_flac_info")
     audio_io._FLAC_CACHE.clear()
     jaudio._FLAC_CACHE.clear()
     yield

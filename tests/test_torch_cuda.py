@@ -114,3 +114,45 @@ def test_tiny_training_steps_on_the_card_match_the_cpu(cuda, tmp_path):
     num = sum(float((a - b).double().pow(2).sum()) for a, b in zip(res["cuda"][3], res["cpu"][3]))
     den = sum(float(b.double().pow(2).sum()) for b in res["cpu"][3])
     assert den > 0 and (num / den) ** 0.5 <= 1e-2
+
+
+def test_tiny_program_graphs_equal_eager(cuda):
+    """The sampler's inpainting program, captured as CUDA graphs, against
+    ``heun_sample`` run eagerly on the same noise (tiny net, f32, TF32
+    off): the Triton launches inside the graphs are counted per replay, the
+    results agree, and a second run does not alias the first."""
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.sampling import degradations as degr
+    from aid_tpu_torch.sampling import heun
+    from aid_tpu_torch.utils.config import compose
+
+    args = compose(overrides=[
+        "network.cqt.num_octs=3", "network.cqt.bins_per_oct=8", "exp.audio_len=2048",
+        "exp.sample_rate=4096", "network.Ns=[8,16,16]", "network.num_dils=[1,2,2]",
+        "network.attention_layers=[0,1,1,1]", "network.emb_dim=32",
+        "network.attention_dict.num_heads=2", "network.compute_dtype=float32", "tester.T=4"])
+    net = tsetup.setup_network(args, device="cuda", seed=0)
+    s = tsetup.setup_sampler(args, net, tsetup.setup_diff_parameters(args))
+    mask = torch.ones(2, 2048, device="cuda")
+    mask[:, 700:1100] = 0.0
+    y = torch.randn(2, 2048, generator=cuda, device="cuda") * 0.1 * mask
+    prior, churn = heun.draw_noise((2, 2048), s.cfg.T, cuda, "cuda")
+    prog = s.compile_inpainting(y, mask)          # warm-up and capture
+    fa.reset_launch_count()
+    got = s.predict_inpainting(y, mask, prior=prior, churn=churn)
+    torch.cuda.synchronize()
+    assert list(s._programs.values()) == [prog]
+    assert prog.graphs is not None and prog.replays == s.cfg.T
+    assert fa.launch_count() == prog.launches_per_run() > 0
+    assert prog.memory_bytes() > prog.static_bytes()
+    smooth = s._smooth_mask(mask)
+    proj = degr.inpainting_projector(y, smooth)
+    score = heun.make_score_fn(s.p, s.cfg, s._denoise, y=y, degradation=degr.time_mask(mask),
+                               proj=proj, hpf=s._hpf())
+    ref = heun.heun_sample((2, 2048), s.p, s.cfg, score, proj_end=proj, prior=prior,
+                           churn=churn)
+    assert torch.isfinite(ref).all()
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+    kept = got.clone()
+    other = s.predict_inpainting(0.5 * y, mask, prior=churn[0], churn=churn.flip(0))
+    assert torch.equal(got, kept) and not torch.equal(got, other)

@@ -18,6 +18,14 @@ from aid_tpu.utils.config import compose as jcompose
 from aid_tpu_torch import setup as tsetup
 from aid_tpu_torch.data import audio_io, loader, maestro
 from aid_tpu_torch.utils.config import compose
+from tests.torch_native import jax_native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_loaded():
+    """The JAX package's native library (libsoxr, its WAV and FLAC
+    readers) loaded before any test compares the two packages."""
+    assert jax_native() is not None
 
 
 @pytest.fixture(scope="module")

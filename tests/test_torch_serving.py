@@ -22,6 +22,7 @@ from aid_tpu_torch import setup as tsetup
 from aid_tpu_torch.data import audio_io
 from aid_tpu_torch.serving import InpaintingService, find_gaps
 from aid_tpu_torch.utils.containers import EasyDict
+from tests.torch_native import jax_native
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 L, FS = 1000, 4096
@@ -101,7 +102,7 @@ FOREIGN_GAPS = [(100, 150), (900, 1000), (1500, 3400), (4000, 4040)]   # input s
 @pytest.fixture
 def soxr_in_both():
     assert audio_io.resampler_route() == "soxr"
-    assert jaudio._native() is not None
+    assert jax_native() is not None and jaudio._native() is not None
 
 
 @pytest.mark.parametrize("max_batch", [1, 2])
@@ -228,8 +229,9 @@ def test_from_config_loads_a_checkpoint(tmp_path):
 
 
 def test_precompile_leaves_a_later_inpaint_unchanged():
-    """precompile runs one guided score at [max_batch, L] and draws nothing
-    from the global generator or a request's noise: a request answered
+    """precompile builds the programs for [max_batch, L] and every smaller
+    row count and draws nothing from the global generator or a request's
+    noise: a request answered
     after it equals the same request answered before it."""
     svc = InpaintingService.from_config(TINY, device="cpu")
     rng = np.random.default_rng(5)
