@@ -645,11 +645,13 @@ class UnetCQT(nn.Module):
                emb: torch.Tensor, cp=None) -> torch.Tensor:
         if not (self.remat and torch.is_grad_enabled()):
             return blk(x, emb, cp)
+        # a block draws no random numbers, so the recomputation needs no saved
+        # RNG state (reading it is not allowed inside a CUDA graph capture)
         if self.remat_policy == "conv":
-            return checkpoint(blk, x, emb, cp, use_reentrant=False,
+            return checkpoint(blk, x, emb, cp, use_reentrant=False, preserve_rng_state=False,
                               context_fn=functools.partial(
                                   create_selective_checkpoint_contexts, _save_conv_out))
-        return checkpoint(blk, x, emb, cp, use_reentrant=False)
+        return checkpoint(blk, x, emb, cp, use_reentrant=False, preserve_rng_state=False)
 
     def _levels_cp(self, X_list) -> list:
         """Per U-Net level (encoder order), the cp context its activations

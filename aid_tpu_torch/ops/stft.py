@@ -7,6 +7,7 @@ differentiable: spectral guidance backpropagates through them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -15,7 +16,15 @@ import torch.nn.functional as F
 
 
 def hann_window(win_length: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Periodic Hann (``torch.hann_window``'s default)."""
+    """Periodic Hann (``torch.hann_window``'s default), made once per
+    (length, dtype, device) and kept there: a copy from the host on every
+    call would wait for the host, and a CUDA graph capture cannot copy from
+    pageable memory. The tensor is shared: callers must not write to it."""
+    return _hann(int(win_length), dtype, torch.device("cpu" if device is None else device))
+
+
+@functools.lru_cache(maxsize=None)
+def _hann(win_length: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     n = np.arange(win_length)
     return torch.as_tensor(0.5 - 0.5 * np.cos(2 * np.pi * n / win_length), dtype=dtype,
                            device=device)

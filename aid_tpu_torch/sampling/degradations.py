@@ -90,10 +90,14 @@ def firwin_lowpass(order: int, fc: float, fs: float, beta: float = 6.76) -> Call
                                window=("kaiser", beta)).astype(np.float32)
     w = torch.from_numpy(taps)[None, None]
     pad = len(taps) // 2
+    on_device: Dict[Tuple[torch.device, torch.dtype], torch.Tensor] = {}
 
     def apply(x):
+        key = (x.device, x.dtype)
+        if key not in on_device:        # copied once: a capture cannot copy from the host
+            on_device[key] = w.to(x.device, x.dtype)
         z = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, len(taps) - 1 - pad))
-        return F.conv1d(z, w.to(x.device, x.dtype)).reshape(x.shape)
+        return F.conv1d(z, on_device[key]).reshape(x.shape)
 
     return apply
 
@@ -106,8 +110,10 @@ def iir_lowpass(kind: str, order: int, fc: float, fs: float,
     at length >= 2L - 1 instead of L sequential steps (the filter sits in
     the guided score, which backpropagates through it every call).
 
-    The impulse response is computed once per length on the host in f64
-    from scipy's f64 coefficients. (The JAX package runs the recursion with
+    The impulse response is computed once per (length, device, dtype) on
+    the host in f64 from scipy's f64 coefficients, and its spectrum kept on
+    the device (a CUDA graph capture meets only filled entries: its warm-up
+    ran the same call). (The JAX package runs the recursion with
     coefficients rounded to f32; from order 8 up that rounding moves the
     cheby1 response itself.) A filter with a pole on or outside the unit
     circle raises: its recursion diverges."""
@@ -119,11 +125,11 @@ def iir_lowpass(kind: str, order: int, fc: float, fs: float,
     if not radius < 1.0:
         raise ValueError(f"{kind} lowpass of order {order} at {fc} Hz (fs {fs} Hz) is "
                          f"unstable: its largest pole radius is {radius:.3g} >= 1")
-    spectra: Dict[Tuple[int, str], Tuple[torch.Tensor, int]] = {}
+    spectra: Dict[Tuple[int, torch.device, torch.dtype], Tuple[torch.Tensor, int]] = {}
 
     def apply(x):
         L = x.shape[-1]
-        key = (L, str(x.device))
+        key = (L, x.device, x.dtype)
         if key not in spectra:
             impulse = np.zeros(L)
             impulse[0] = 1.0
@@ -168,7 +174,8 @@ def bwe_lowpass(filter_type: str, order: int, fc: float, fs: float) -> Callable:
 # ------------------------------------------------------------------ clipping
 
 def hard_clip(clip_value) -> Callable:
-    """Declipping degradation: clip to [-clip_value, clip_value]."""
+    """Declipping degradation: clip to [-clip_value, clip_value] (a number
+    or a 0-dim tensor, which a program holds as its buffer)."""
     return lambda x: torch.clamp(x, -clip_value, clip_value)
 
 

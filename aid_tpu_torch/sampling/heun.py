@@ -22,7 +22,9 @@ proj(x) -> data-consistency projection; hpf(x) -> band-limit filter.
 With ``SamplerConfig.record`` (the tester's ``rid`` mode) a score function
 returns ``(score, Record)`` and ``heun_sample`` returns ``(x, Record)``,
 the Record's fields stacked over the steps ``[T, B, L]``: each step records
-its first score call, with ``xt2`` the step's updated x.
+its first score call, with ``xt2`` the step's updated x. A built program
+writes each step's Record into ``[T, B, L]`` buffers instead
+(``write_record``), at a step index it holds on the device.
 """
 from __future__ import annotations
 
@@ -63,6 +65,14 @@ class Record(NamedTuple):
     grad_update: torch.Tensor
     pocs: torch.Tensor
     xt2: torch.Tensor
+
+
+def write_record(records: Record, i: torch.Tensor, rec: Record) -> None:
+    """Write one step's ``rec`` into slot ``i`` (a 0-dim index tensor) of
+    the ``[T, ...]`` buffers ``records``, on the device."""
+    i = i.reshape(1)
+    for buf, field in zip(records, rec):
+        buf.index_copy_(0, i, field.unsqueeze(0))
 
 
 def _residual_norm(cfg: SamplerConfig, r: torch.Tensor) -> torch.Tensor:

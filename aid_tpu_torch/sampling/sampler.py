@@ -3,14 +3,16 @@ unconditional generation, long/short-gap inpainting, spectrogram
 inpainting, bandwidth extension, declipping, phase retrieval, compressive
 sensing and autoregressive outpainting.
 
-Inpainting (``predict_inpainting``, the inpainting segments of
-``predict_autoregressive``) and unconditional generation run through a
-``sampling.program.HeunProgram`` cached per (task, shape, dtypes, sampler
-config, fused function, weights): CUDA graphs of the guided-Heun step on
-the card, the same steps eagerly on the CPU (``heun_sample``'s result bit
-for bit). ``compile_inpainting`` builds one without running it. The other
-five tasks, ``rid`` recording and any call under a process group (whose
-collectives a graph cannot hold) build their score function and run
+Every task, with or without ``rid`` recording, runs through a
+``sampling.program.HeunProgram`` cached per (the JAX package's task key,
+the shapes and dtypes of its buffers, sampler config, device, fused
+function, weights): CUDA graphs of the guided-Heun step on the card, the
+same steps eagerly on the CPU (``heun_sample``'s result bit for bit). A
+new value of a traced argument of the JAX program (a mask, a clip value,
+an observation) reuses the program; a new BWE filter builds another.
+``compile_inpainting`` builds the inpainting program without running it.
+Calls under a process group (whose collectives a graph cannot hold) build
+the same task's operators over the request's tensors and run
 ``heun_sample`` eagerly.
 
 Noise is drawn from ``generator`` unless the standard-normal ``prior``
@@ -34,8 +36,10 @@ import torch.distributed as dist
 from aid_tpu_torch.diffusion import edm
 from aid_tpu_torch.ops import fused_adaln as fa
 from aid_tpu_torch.sampling import degradations as degr
+from aid_tpu_torch.sampling import program
 from aid_tpu_torch.sampling.heun import SamplerConfig, draw_noise, heun_sample, make_score_fn
-from aid_tpu_torch.sampling.program import HeunProgram
+from aid_tpu_torch.sampling.program import HeunProgram, Task
+from aid_tpu_torch.utils.graphs import capture_flags, specs, tensors_key
 
 
 def denoise_at(p: edm.EDMParams, model, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -70,7 +74,7 @@ class Sampler:
         self.hann_size = int(dc.get("hann_size", 50))
         self._programs = {}
         self._weights = None
-        self._pool = self._stream = None
+        self._pool = None
 
     @property
     def device(self) -> torch.device:
@@ -98,31 +102,39 @@ class Sampler:
         epsilon as s = t^2 xi / (|g|/sqrt(L) t + eps)."""
         return dataclasses.replace(self.cfg, guidance_eps="generic")
 
-    def _sample(self, shape, cfg: SamplerConfig, y=None, degradation=None, proj=None,
-                proj_end=None, generator=None, prior=None, churn=None):
-        score = make_score_fn(self.p, cfg, self._denoise, y=y, degradation=degradation,
-                              proj=proj, hpf=self._hpf())
-        return heun_sample(tuple(shape), self.p, cfg, score, proj_end=proj_end,
-                           prior=prior, churn=churn, generator=generator,
-                           device=self.device)
+    def _run(self, task: Task, cfg: SamplerConfig, shape, generator, prior, churn,
+             **inputs):
+        """One trajectory of ``task`` over ``inputs``: its program, or, where
+        programs are off, ``heun_sample`` over the same operators built on
+        the request's tensors. The noise is drawn here, outside any graph."""
+        shape = tuple(shape)
+        if prior is None or churn is None:
+            prior, churn = draw_noise(shape, cfg.T, generator, self.device, prior, churn)
+        if not self.programs_enabled():
+            ops = task.ops(inputs)
+            score = make_score_fn(self.p, cfg, self._denoise, y=ops.y,
+                                  degradation=ops.degradation, proj=ops.proj, hpf=self._hpf())
+            return heun_sample(shape, self.p, cfg, score, proj_end=ops.proj_end, prior=prior,
+                               churn=churn, device=self.device)
+        buffers = {"x": (shape, prior.dtype), "z": (shape, churn.dtype),
+                   **specs(inputs)}
+        return self._program(task, cfg, buffers).run(prior, churn, **inputs)
 
     # -------------------------------------------------------------- programs
 
     def _weights_key(self) -> tuple:
-        """Address, dtype and version of every parameter and buffer: a new
-        tensor (a dtype cast, a move) or an in-place load changes it."""
-        return tuple((t.data_ptr(), t.dtype, t._version)
-                     for t in itertools.chain(self.model.parameters(), self.model.buffers()))
+        """``tensors_key`` of every parameter and buffer."""
+        return tensors_key(itertools.chain(self.model.parameters(), self.model.buffers()))
 
     def programs_enabled(self) -> bool:
-        """Programs serve every call but ``rid`` recording and calls under a
-        process group (gloo's collectives cannot be captured)."""
-        return not self.rid and not (dist.is_available() and dist.is_initialized())
+        """Programs serve every call but those under a process group (gloo's
+        collectives cannot be captured)."""
+        return not (dist.is_available() and dist.is_initialized())
 
     def release_programs(self) -> None:
         """Drop every cached program and the graph pool they share."""
         self._programs.clear()
-        self._pool = self._stream = None
+        self._pool = None
 
     def _cached_program(self, task_key, build) -> HeunProgram:
         """One program per (task key, fused function, weights): the fused
@@ -139,19 +151,19 @@ class Sampler:
             prog = self._programs[key] = build()
         return prog
 
-    def _program(self, task: str, shape, dtypes: dict) -> HeunProgram:
+    def _program(self, task: Task, cfg: SamplerConfig, buffers: dict) -> HeunProgram:
+        """The cached program of ``task`` under ``cfg`` for ``buffers``
+        ({name: (shape, dtype)}), built on a miss."""
         dev = self.device
         if dev.type == "cuda" and self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(dev)
-        key = (task, tuple(shape), tuple(sorted((k, str(v)) for k, v in dtypes.items())),
-               self.cfg, dev)
+        key = (task.key, tuple(sorted((k, tuple(s), str(d)) for k, (s, d) in buffers.items())),
+               cfg, dev, capture_flags(self.model))
         # the program holds the model, not the sampler: dropping the sampler
         # frees its programs and their graph pool without a garbage collection
         denoise = functools.partial(denoise_at, self.p, self.model)
         return self._cached_program(key, lambda: HeunProgram(
-            task, self.p, self.cfg, denoise, tuple(shape), dtypes, dev,
-            hpf=self._hpf(), pool=self._pool, stream=self._stream))
+            task, self.p, cfg, denoise, buffers, dev, hpf=self._hpf(), pool=self._pool))
 
     def _smooth_mask(self, mask: torch.Tensor) -> torch.Tensor:
         """The Hann-smoothed mask (each row its own), computed on the host."""
@@ -165,36 +177,22 @@ class Sampler:
         ``predict_inpainting`` runs for these shapes and dtypes, noise drawn
         in the default dtype, without running a trajectory; returns it (its
         ``memory_bytes()`` drives ``InpaintingService.autotune_max_batch``)."""
-        noise = torch.get_default_dtype()
-        return self._program("inpainting", y_masked.shape, {
-            "x": noise, "z": noise, "y": y_masked.dtype, "mask": mask.dtype,
-            "smooth": torch.float32 if self.smooth else mask.dtype})
+        noise, shape = torch.get_default_dtype(), tuple(y_masked.shape)
+        return self._program(program.inpainting(), self.cfg, {
+            "x": (shape, noise), "z": (shape, noise), "y": (shape, y_masked.dtype),
+            "mask": (tuple(mask.shape), mask.dtype),
+            "smooth": (tuple(mask.shape), torch.float32 if self.smooth else mask.dtype)})
 
     def _inpaint(self, y_masked, mask, smooth, generator, prior, churn):
-        """Inpainting with the projection's ``smooth`` mask: the program,
-        or ``heun_sample`` where programs are off."""
-        if not self.programs_enabled():
-            proj = degr.inpainting_projector(y_masked, smooth)
-            return self._sample(y_masked.shape, self.cfg, y=y_masked,
-                                degradation=degr.time_mask(mask), proj=proj, proj_end=proj,
-                                generator=generator, prior=prior, churn=churn)
-        prior, churn = draw_noise(y_masked.shape, self.cfg.T, generator, self.device,
-                                  prior, churn)
-        prog = self._program("inpainting", y_masked.shape, {
-            "x": prior.dtype, "z": churn.dtype, "y": y_masked.dtype, "mask": mask.dtype,
-            "smooth": smooth.dtype})
-        return prog.run(prior, churn, y_masked, mask, smooth)
+        """Inpainting with the projection's ``smooth`` mask."""
+        return self._run(program.inpainting(), self.cfg, y_masked.shape, generator, prior,
+                         churn, y=y_masked, mask=mask, smooth=smooth)
 
     # ----------------------------------------------------------------- tasks
 
     def predict_unconditional(self, shape, generator: Optional[torch.Generator] = None,
                               prior=None, churn=None):
-        if not self.programs_enabled():
-            return self._sample(shape, self.cfg, generator=generator, prior=prior,
-                                churn=churn)
-        prior, churn = draw_noise(shape, self.cfg.T, generator, self.device, prior, churn)
-        prog = self._program("unconditional", shape, {"x": prior.dtype, "z": churn.dtype})
-        return prog.run(prior, churn)
+        return self._run(program.unconditional(), self.cfg, shape, generator, prior, churn)
 
     def predict_inpainting(self, y_masked: torch.Tensor, mask: torch.Tensor,
                            generator: Optional[torch.Generator] = None,
@@ -208,11 +206,9 @@ class Sampler:
                                        prior=None, churn=None):
         """Inpainting of a (F, frames) STFT-domain mask: the degradation is
         the masked resynthesis A; the projection is y + x - A(x)."""
-        apply_mask = degr.spectral_mask(mask_FT, self.args.tester.spectrogram_inpainting.stft)
-        proj = degr.spectral_projector(y_masked, apply_mask)
-        return self._sample(y_masked.shape, self.cfg, y=y_masked, degradation=apply_mask,
-                            proj=proj, proj_end=proj, generator=generator, prior=prior,
-                            churn=churn)
+        task = program.spectrogram_inpainting(self.args.tester.spectrogram_inpainting.stft)
+        return self._run(task, self.cfg, y_masked.shape, generator, prior, churn, y=y_masked,
+                         mask_FT=mask_FT)
 
     def predict_bwe(self, y_lowpassed: torch.Tensor, fc: float, fs: float,
                     filter_type: str = "firwin", order: int = 200,
@@ -220,28 +216,24 @@ class Sampler:
         """Bandwidth extension: the degradation is the lowpass LPF
         (``degradations.bwe_lowpass``); the projection is y + x - LPF(x).
         ``y_lowpassed`` is the observation LPF(clean)."""
-        lpf = degr.bwe_lowpass(filter_type, order, fc, fs)
-        proj = degr.spectral_projector(y_lowpassed, lpf)
-        return self._sample(y_lowpassed.shape, self._generic_cfg(), y=y_lowpassed,
-                            degradation=lpf, proj=proj, proj_end=proj, generator=generator,
-                            prior=prior, churn=churn)
+        return self._run(program.bwe(filter_type, order, fc, fs), self._generic_cfg(),
+                         y_lowpassed.shape, generator, prior, churn, y=y_lowpassed)
 
     def predict_declipping(self, y_clipped: torch.Tensor, clip_value,
                            generator: Optional[torch.Generator] = None, prior=None,
                            churn=None):
         """Declipping: guidance through the hard clip, no projection."""
         cv = torch.as_tensor(clip_value, dtype=torch.float32, device=y_clipped.device)
-        return self._sample(y_clipped.shape, self._generic_cfg(), y=y_clipped,
-                            degradation=degr.hard_clip(cv), generator=generator,
-                            prior=prior, churn=churn)
+        return self._run(program.declipping(), self._generic_cfg(), y_clipped.shape,
+                         generator, prior, churn, y=y_clipped, clip_value=cv)
 
     def predict_phase_retrieval(self, y_mag: torch.Tensor, shape,
                                 generator: Optional[torch.Generator] = None, prior=None,
                                 churn=None):
         """Phase retrieval: guidance through |STFT(x)|, no projection."""
-        mag = degr.stft_magnitude(self.args.tester.spectrogram_inpainting.stft)
-        return self._sample(shape, self._generic_cfg(), y=y_mag, degradation=mag,
-                            generator=generator, prior=prior, churn=churn)
+        task = program.phase_retrieval(shape, self.args.tester.spectrogram_inpainting.stft)
+        return self._run(task, self._generic_cfg(), shape, generator, prior, churn,
+                         y_mag=y_mag)
 
     def predict_compsens(self, y_subsampled: torch.Tensor, mask: torch.Tensor,
                          generator: Optional[torch.Generator] = None, prior=None,
@@ -250,9 +242,8 @@ class Sampler:
         data consistency off (the reference asserts it off)."""
         cfg = dataclasses.replace(self._generic_cfg(), data_consistency=False,
                                   data_consistency_end=False)
-        return self._sample(y_subsampled.shape, cfg, y=y_subsampled,
-                            degradation=degr.time_mask(mask), generator=generator,
-                            prior=prior, churn=churn)
+        return self._run(program.compsens(), cfg, y_subsampled.shape, generator, prior, churn,
+                         y=y_subsampled, mask=mask)
 
     def predict_autoregressive(self, num_segments: int, overlap: float = 0.25,
                                shape=None, generator: Optional[torch.Generator] = None,

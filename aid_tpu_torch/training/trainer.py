@@ -23,6 +23,21 @@ The optimizer is written as tensor ops (``torch._foreach_*``) and not as
 Random draws (the polarity sign, sigma, the noise) can be injected per
 micro-batch, so a test can feed this trainer and the JAX one the same draws.
 
+The step is one function of device tensors (``_step``: the micro-batch
+forward and backward passes, clipping, Adam, the guardrails, the EMA and
+the metrics). The host does what varies from step to step first, in the
+eager order: each micro-batch goes to the device, is resampled, and draws
+its sign, sigma and noise from ``self.gen``; the EMA's rate comes from the
+iteration count. With no process group the step runs as a
+``training.program.StepProgram``, one per (input shapes and dtypes, fused
+function, TF32 and remat settings) over the current state tensors, the
+counterpart of the JAX step's ``jax.jit`` with donation: on CUDA a CUDA
+graph replayed every step, on the CPU the same function eagerly over the
+same buffers (the eager step bit for bit). ``compile_step`` builds it
+without training. A new state tensor, a resume or an in-place load
+(address or version of a parameter, moment, EMA, counter or buffer) drops
+the program.
+
 Under a process group (``parallel.mesh.init_distributed``) the global batch
 ``exp.batch`` is split over a ``"dp"`` mesh of ranks, each of which takes its
 ``local_batch_size`` rows from its own data stream:
@@ -43,10 +58,12 @@ checkpoint is gathered there first, in the one-device layout).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import sys
 import time
 import traceback
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -54,9 +71,12 @@ import torch
 import torch.distributed as dist
 
 from aid_tpu_torch.diffusion import edm
+from aid_tpu_torch.ops import fused_adaln as fa
 from aid_tpu_torch.parallel import mesh as pmesh
 from aid_tpu_torch.training import stats as tstats
 from aid_tpu_torch.training import utils as tutils
+from aid_tpu_torch.training.program import StepProgram
+from aid_tpu_torch.utils.graphs import capture_flags, specs, tensors_key
 from aid_tpu_torch.utils import checkpoint as ckpt
 from aid_tpu_torch.utils import logging_utils as logu
 
@@ -95,6 +115,9 @@ class Trainer:
         self.rampup = max(int(exp.lr_rampup_it), 1)
         opt = exp.optimizer
         self.b1, self.b2, self.eps = float(opt.beta1), float(opt.beta2), float(opt.eps)
+        # the bias corrections' bases, on the device once (no copy in the step)
+        self._b1t = torch.tensor(self.b1, device=self.device)
+        self._b2t = torch.tensor(self.b2, device=self.device)
         self.use_clip = bool(exp.get("use_grad_clip", True))
         self.max_norm = float(exp.max_grad_norm)
         self.skip_gnorm = float(exp.get("skip_grad_norm", 0) or 0)
@@ -147,6 +170,9 @@ class Trainer:
             int(exp.get("seed", 42)) + 1000003 * pmesh.rank())
         self.it = 0
         self.ema: Optional[List[torch.Tensor]] = None
+        self._step_programs: Dict[tuple, StepProgram] = {}
+        self._state_seen = None         # the state key the cached programs were built over
+        self.step_programs_built = 0
 
     # ------------------------------------------------------------- parallel
 
@@ -313,31 +339,49 @@ class Trainer:
 
     # ------------------------------------------------------------------ step
 
-    def loss_and_grads(self, audio: np.ndarray, fs: np.ndarray,
-                       draws: Optional[List[Dict]] = None):
-        """Loss and gradients of one iteration: ``audio`` [n_accum, B, T],
-        ``fs`` [n_accum, B] host arrays; ``draws`` optionally gives each
-        micro-batch's ``sign`` [B, 1], ``sigma`` [B] and sigma-scaled
-        ``noise`` [B, audio_len]. Returns (loss, per-sample loss, sigma,
-        gradients averaged over the micro-batches, and over the ranks under a
-        process group; this rank's pieces under FSDP)."""
-        self.net.zero_grad(set_to_none=True)
-        losses, per_sample, sigmas = [], [], []
-        n_micro = audio.shape[0]
-        for i in range(n_micro):
-            d = {k: torch.tensor(v, device=self.device)
-                 for k, v in (draws[i] if draws else {}).items()}
+    def _inputs(self, audio: np.ndarray, fs: np.ndarray, draws: Optional[List[Dict]] = None):
+        """The step's device inputs from host arrays ``audio`` [n_accum, B,
+        T] and ``fs`` [n_accum, B], in the eager order: each micro-batch goes
+        to the device, is resampled where its rows are at another rate and
+        cropped to the model length, then draws its augmentations, sigma
+        and noise from ``self.gen`` (each given in ``draws[i]`` is taken
+        instead). Returns (x [n_accum, B, L], {name: [n_accum, ...]})."""
+        xs, ds = [], []
+        for i in range(audio.shape[0]):
+            given = {k: torch.tensor(v, device=self.device)
+                     for k, v in (draws[i] if draws else {}).items()}
             x = torch.from_numpy(np.ascontiguousarray(audio[i], np.float32)).to(self.device)
             if x.shape[-1] != self.audio_len:
                 # native-rate segments: resample on the device, crop to the model length
                 x = tutils.resample_batch(x, fs[i], self.target_fs)[..., :self.audio_len]
-            x = tutils.augment(x, self.aug_cfg, self.gen, sign=d.get("sign"))
+            B = x.shape[0]
+            d = tutils.augment_draws(B, self.aug_cfg, self.gen, self.device,
+                                     sign=given.get("sign"), gain_db=given.get("gain_db"))
+            sigma = given.get("sigma")
+            if sigma is None:
+                sigma = edm.sample_ptrain_safe(self.p, B, self.gen, self.device)
+            noise = given.get("noise")
+            if noise is None:
+                noise = edm.sample_prior(self.p, tuple(x.shape), sigma.reshape(-1, 1), self.gen,
+                                         self.device)
+            xs.append(x)
+            ds.append({**d, "sigma": sigma, "noise": noise})
+        return torch.stack(xs), {k: torch.stack([d[k] for d in ds]) for k in ds[0]}
+
+    def _loss_and_grads(self, x: torch.Tensor, draws: Dict[str, torch.Tensor]):
+        """Loss and gradients on the device inputs of ``_inputs``."""
+        self.net.zero_grad(set_to_none=True)
+        losses, per_sample, sigmas = [], [], []
+        n_micro = x.shape[0]
+        for i in range(n_micro):
+            xi = tutils.augment(x[i], self.aug_cfg, sign=draws.get("sign", [None] * n_micro)[i],
+                                gain_db=draws.get("gain_db", [None] * n_micro)[i])
             # DDP averages the gradients over the ranks in the last backward
             sync = (contextlib.nullcontext() if i == n_micro - 1 or self.model is self.net
                     else self.model.no_sync())
             with sync:
-                err2, sigma = edm.loss_fn(self.p, self.model, x, self.gen, self.error_filter,
-                                          sigma=d.get("sigma"), noise=d.get("noise"))
+                err2, sigma = edm.loss_fn(self.p, self.model, xi, None, self.error_filter,
+                                          sigma=draws["sigma"][i], noise=draws["noise"][i])
                 ps = err2.reshape(err2.shape[0], -1).mean(-1)
                 loss = ps.mean()
                 loss.backward()
@@ -360,10 +404,30 @@ class Trainer:
         return (sum(losses[1:], losses[0]) / n, torch.cat(per_sample), torch.cat(sigmas),
                 grads)
 
+    def loss_and_grads(self, audio: np.ndarray, fs: np.ndarray,
+                       draws: Optional[List[Dict]] = None):
+        """Loss and gradients of one iteration: ``audio`` [n_accum, B, T],
+        ``fs`` [n_accum, B] host arrays; ``draws`` optionally gives each
+        micro-batch's ``sign`` [B, 1], ``sigma`` [B] and sigma-scaled
+        ``noise`` [B, audio_len]. Returns (loss, per-sample loss, sigma,
+        gradients averaged over the micro-batches, and over the ranks under a
+        process group; this rank's pieces under FSDP)."""
+        return self._loss_and_grads(*self._inputs(audio, fs, draws))
+
+    def _ema_keep(self) -> np.float32:
+        """1 - the EMA rate of the next step, in f32 as the JAX step: with
+        rampup, rate = min(ema_rate, (1 + t) / (10 + t)), t = (it + 1) batch."""
+        tb = (np.float32(self.it) + np.float32(1.0)) * np.float32(self.batch)
+        rate = np.float32(self.ema_rate)
+        if self.ema_rampup is not None:
+            rate = min(rate, (np.float32(1.0) + tb) / (np.float32(10.0) + tb))
+        return np.float32(1.0) - rate
+
     @torch.no_grad()
-    def apply_grads(self, loss, per_sample, sigma, grads) -> Dict:
-        """Clip, Adam, LR ramp, guardrails and EMA; returns the step's metrics
-        (device tensors: nothing here waits for the device)."""
+    def apply_grads(self, loss, per_sample, sigma, grads, ema_keep: torch.Tensor) -> Dict:
+        """Clip, Adam, LR ramp, guardrails and EMA (``ema_keep``: the 0-dim
+        1 - rate); returns the step's metrics (fresh device tensors: nothing
+        here waits for the device or reads a number on the host)."""
         norms = torch._foreach_norm(grads)
         if self.fsdp:
             # shards: all-reduce the squares; whole tensors counted once
@@ -384,8 +448,8 @@ class Trainer:
         nu = torch._foreach_mul(self.nu, self.b2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
         t = count_inc.float()
-        bc1 = 1.0 - torch.pow(torch.tensor(self.b1, device=self.device), t)
-        bc2 = 1.0 - torch.pow(torch.tensor(self.b2, device=self.device), t)
+        bc1 = 1.0 - torch.pow(self._b1t, t)
+        bc2 = 1.0 - torch.pow(self._b2t, t)
         den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
@@ -405,16 +469,18 @@ class Trainer:
         warm = self.gnorm_ema > 0.0
         if self.skip_factor > 0:
             ok = ok & (~warm | (gnorm < self.skip_factor * self.gnorm_ema))
+        # the state tensors are written in place: a captured step replays
+        # into the same addresses
         if self.skip_gnorm > 0 or self.skip_factor > 0:
             # a skipped step keeps the parameters, both moments and the count
             for dst, new in zip(self.params + self.mu + self.nu, new_p + mu + nu):
                 dst.copy_(torch.where(ok, new, dst))
-            self.count = torch.where(ok, count_inc, self.count)
+            self.count.copy_(torch.where(ok, count_inc, self.count))
             skipped = (~ok).float()
             self.applied += ok.long()
         else:
             torch._foreach_copy_(self.params + self.mu + self.nu, new_p + mu + nu)
-            self.count = count_inc
+            self.count.copy_(count_inc)
             skipped = torch.zeros((), device=self.device)
             self.applied += 1
         del new_p, mu, nu
@@ -422,18 +488,13 @@ class Trainer:
         if self.skip_factor > 0:
             cap = self.skip_factor * self.gnorm_ema
             g_obs = torch.where(warm & (g_obs > cap), cap, g_obs)
-        self.gnorm_ema = torch.where(warm, 0.98 * self.gnorm_ema + 0.02 * g_obs, g_obs)
+        self.gnorm_ema.copy_(torch.where(warm, 0.98 * self.gnorm_ema + 0.02 * g_obs, g_obs))
 
-        # EMA with rampup, in f32 as the JAX step: t = (it + 1) batch
-        tb = (np.float32(self.it) + np.float32(1.0)) * np.float32(self.batch)
-        rate = np.float32(self.ema_rate)
-        if self.ema_rampup is not None:
-            rate = min(rate, (np.float32(1.0) + tb) / (np.float32(10.0) + tb))
+        # EMA with rampup, the rate from the host
         d = torch._foreach_sub(self.params, self.ema)
-        torch._foreach_mul_(d, float(np.float32(1.0) - rate))
+        torch._foreach_mul_(d, ema_keep)
         torch._foreach_add_(self.ema, d)
         del d
-        self.it += 1
 
         sq = {k: torch.zeros((), device=self.device) for k in self.groups}
         for n, v in zip(self.names, norms):
@@ -445,23 +506,122 @@ class Trainer:
             # the global batch's loss and statistics
             loss, bins, moments = tstats.sum_over_ranks(
                 [loss / self.n_dp, bins, moments], self.mesh.get_group())
-        return {"loss": loss, "grad_norm": gnorm, "gnorm_ema": self.gnorm_ema,
+        return {"loss": loss, "grad_norm": gnorm, "gnorm_ema": self.gnorm_ema.clone(),
                 "skipped": skipped, "sigma_bins": bins, "loss_moments": moments,
                 "grad_norms_by_module": {k: v.sqrt() for k, v in sq.items()}}
+
+    def _step(self, x: torch.Tensor, draws: Dict[str, torch.Tensor],
+              ema_keep: torch.Tensor) -> Dict:
+        """One iteration on device tensors: what a step program runs."""
+        return self.apply_grads(*self._loss_and_grads(x, draws), ema_keep)
 
     def get_batch(self):
         """Next host batch: (audio [n_accum B, T] f32, fs [n_accum B])."""
         audio, fs = next(self.dset)
         return np.asarray(audio, np.float32), np.asarray(fs, np.int64)
 
+    # ------------------------------------------------------------ programs
+
+    def programs_enabled(self) -> bool:
+        """Steps run as programs but under a process group (DDP, FSDP2, tp,
+        cp: their collectives stay eager)."""
+        return self.mesh is None and not (dist.is_available() and dist.is_initialized())
+
+    def _state(self) -> List[torch.Tensor]:
+        return [*self.params, *self.mu, *self.nu, *self.ema, self.count, self.gnorm_ema,
+                self.applied]
+
+    def _state_key(self) -> tuple:
+        """``tensors_key`` of every state tensor and buffer."""
+        return tensors_key(itertools.chain(self._state(), self.net.buffers()))
+
+    def _snapshot(self):
+        """A copy of the state tensors; returns the function that writes it
+        back in place (once). Restoring a state the step programs were built
+        over keeps them: it is not a load."""
+        saved = [t.detach().clone() for t in self._state()]
+        current = self._state_key() == self._state_seen
+
+        def restore():
+            with torch.no_grad():
+                torch._foreach_copy_(self._state(), saved)
+            saved.clear()
+            if current:
+                self._state_seen = self._state_key()
+
+        return restore
+
+    def release_step_programs(self) -> None:
+        """Drop every step program (and its graph pool)."""
+        self._step_programs.clear()
+        self._state_seen = None
+
+    def _step_program(self, x: torch.Tensor, draws: Dict[str, torch.Tensor]) -> StepProgram:
+        """The program for these inputs' shapes and dtypes over the current
+        state, built on a miss (on CUDA its warm-up's update is undone)."""
+        if self._state_key() != self._state_seen:
+            self.release_step_programs()
+        buffers = specs({"x": x, **draws})
+        key = (tuple(sorted((k, s, str(d)) for k, (s, d) in buffers.items())),
+               fa.norm_adaln_gelu, capture_flags(self.net))
+        prog = self._step_programs.get(key)
+        if prog is None:
+            # on the card the build's warm-up trains one step: undone after
+            restore = self._snapshot() if self.device.type == "cuda" else None
+            # the program holds the trainer weakly: dropping the trainer frees
+            # the program and its graph pool without a garbage collection
+            trainer = weakref.ref(self)
+
+            def step(x, draws, ema_keep):
+                return trainer()._step(x, draws, ema_keep)
+
+            prog = self._step_programs[key] = StepProgram(step, buffers, self.device,
+                                                          restore=restore)
+            self.step_programs_built += 1
+        self._state_seen = self._state_key()
+        return prog
+
+    def compile_step(self, audio, fs) -> Optional[StepProgram]:
+        """Build the step program that ``train_step`` runs for this host
+        batch's shapes (capture it, on CUDA), without training: the state,
+        ``it`` and the random stream come out as they went in. Returns it
+        (None under a process group, whose steps run eagerly)."""
+        if self.ema is None:
+            raise RuntimeError("compile_step needs the trainer's state: call init_state() or "
+                               "resume first")
+        if not self.programs_enabled():
+            return None
+        rng, it = self.gen.get_state(), self.it
+        try:
+            x, d = self._inputs(*self._split(audio, fs))
+            return self._step_program(x, d)
+        finally:
+            self.gen.set_state(rng)
+            self.it = it
+
+    # ------------------------------------------------------------------ step
+
+    def _split(self, audio, fs):
+        audio = np.asarray(audio, np.float32)
+        return (audio.reshape(self.n_accum, -1, audio.shape[-1]),
+                np.asarray(fs).reshape(self.n_accum, -1))
+
     def train_step(self, audio, fs, draws: Optional[List[Dict]] = None) -> Dict:
         """One iteration on a host batch of n_accum x B rows (this rank's
         rows under a process group), split into n_accum micro-batches in
-        order."""
-        audio = np.asarray(audio, np.float32)
-        audio = audio.reshape(self.n_accum, -1, audio.shape[-1])
-        fs = np.asarray(fs).reshape(self.n_accum, -1)
-        return self.apply_grads(*self.loss_and_grads(audio, fs, draws))
+        order: through the step program, or eagerly under a process group."""
+        return self._train_step(audio, fs, draws, self.programs_enabled())
+
+    def _train_step(self, audio, fs, draws, program: bool) -> Dict:
+        x, d = self._inputs(*self._split(audio, fs), draws)
+        keep = self._ema_keep()
+        if program:
+            m = self._step_program(x, d).run(x, d, keep)
+            self._state_seen = self._state_key()   # an eager CPU run moved the versions
+        else:
+            m = self._step(x, d, torch.tensor(keep, device=self.device))
+        self.it += 1
+        return m
 
     # --------------------------------------------------------------- logging
 

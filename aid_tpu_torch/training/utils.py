@@ -127,11 +127,15 @@ def a_weighting_filter(fs: int, ntaps: int = 101) -> Callable[[torch.Tensor], to
     padded (k//2, (k-1)//2)), for the loss's ``error_filter`` hook."""
     taps = torch.from_numpy(_design_aweighting(int(fs), int(ntaps)))
     k = taps.shape[0]
+    on_device: Dict[tuple, torch.Tensor] = {}
 
     def apply(x: torch.Tensor) -> torch.Tensor:
+        key = (x.device, x.dtype)
+        if key not in on_device:        # copied once: a capture cannot copy from the host
+            on_device[key] = taps.to(x.device, x.dtype).reshape(1, 1, k)
         lead, T = x.shape[:-1], x.shape[-1]
         z = F.pad(x.reshape(-1, 1, T), (k // 2, (k - 1) // 2))
-        y = F.conv1d(z, taps.to(x.device, x.dtype).reshape(1, 1, k))
+        y = F.conv1d(z, on_device[key])
         return y.reshape(lead + (T,))
 
     return apply
@@ -176,14 +180,16 @@ class EMAWarmup:
 
 # ----------------------------------------------------------------- augmentation
 
-def augment(audio: torch.Tensor, aug_cfg, gen: Optional[torch.Generator] = None,
-            sign: Optional[torch.Tensor] = None,
-            gain_db: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Batch augmentations of [B, T]: a per-row polarity flip (exact) and a
-    uniform gain in dB. ``sign`` [B, 1] of +-1 and ``gain_db`` [B, 1] replace
-    the draws from ``gen`` when given."""
+def augment_draws(B: int, aug_cfg, gen: Optional[torch.Generator] = None, device=None,
+                  sign: Optional[torch.Tensor] = None,
+                  gain_db: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The draws ``augment`` makes for B rows under ``aug_cfg``, in its
+    order: the polarity ``sign`` [B, 1] of +-1 and the ``gain_db`` [B, 1],
+    each only where its augmentation is on, and the given one instead of a
+    draw from ``gen``."""
+    out: Dict[str, torch.Tensor] = {}
     if aug_cfg is None:
-        return audio
+        return out
     ps = aug_cfg.get("pitch_shift", None)
     if ps is not None and bool(ps.get("use", False)):
         # the reference configs carry this key and no implementation reads it;
@@ -192,16 +198,29 @@ def augment(audio: torch.Tensor, aug_cfg, gen: Optional[torch.Generator] = None,
             "augmentations.pitch_shift.use=True is not implemented "
             "(the reference never implements it either); set use=False "
             "or remove the key.")
-    B = audio.shape[0]
     if bool(aug_cfg.get("rev_polarity", False)):
         if sign is None:
-            flip = torch.rand((B, 1), generator=gen, device=audio.device) < 0.5
+            flip = torch.rand((B, 1), generator=gen, device=device) < 0.5
             sign = 1.0 - 2.0 * flip.float()
-        audio = audio * sign
+        out["sign"] = sign
     gain = aug_cfg.get("gain", None)
     if gain is not None and bool(gain.get("use", False)):
         if gain_db is None:
             lo, hi = float(gain.get("min_db", -3)), float(gain.get("max_db", 3))
-            gain_db = lo + (hi - lo) * torch.rand((B, 1), generator=gen, device=audio.device)
-        audio = audio * 10.0 ** (gain_db / 20.0)
+            gain_db = lo + (hi - lo) * torch.rand((B, 1), generator=gen, device=device)
+        out["gain_db"] = gain_db
+    return out
+
+
+def augment(audio: torch.Tensor, aug_cfg, gen: Optional[torch.Generator] = None,
+            sign: Optional[torch.Tensor] = None,
+            gain_db: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batch augmentations of [B, T]: a per-row polarity flip (exact) and a
+    uniform gain in dB. ``sign`` [B, 1] of +-1 and ``gain_db`` [B, 1] replace
+    the draws from ``gen`` when given (``augment_draws``)."""
+    d = augment_draws(audio.shape[0], aug_cfg, gen, audio.device, sign, gain_db)
+    if "sign" in d:
+        audio = audio * d["sign"]
+    if "gain_db" in d:
+        audio = audio * 10.0 ** (d["gain_db"] / 20.0)
     return audio

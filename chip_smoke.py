@@ -55,9 +55,16 @@ Phases (any failure exits non-zero before the last line is printed):
           largest launch shapes: forward and the autograd.Function's dx,
           dinv and dmod; then at every launch shape, timed at batch 4 f32
           over one training forward as in phase 4;
-       b. one training step with the kernel and one with the plain version
+       b. one training step with the plain version (eagerly) and one with
+          the kernel (replayed from the step program that b' builds)
           (mixed-rate batch, TF32 off): loss and pre-clip gradient norm;
           the first step leaves the parameters as they were (lr 0);
+       b'. ``compile_step`` leaves the state, ``it`` and the random stream
+          as they were; from one state, the eager step, the captured step
+          (replayed) and the eager step again on the same batch and draws:
+          the loss, the update's relative L2 distance from the first eager
+          step's beside the second eager step's, the walls, the program's
+          ``memory_bytes()`` and launches;
        c. the gradients with remat "block" and "conv" against no remat,
           with the peak memory of each;
        d. four steps, a checkpoint at step 2, a fresh trainer resumed from
@@ -66,7 +73,8 @@ Phases (any failure exits non-zero before the last line is printed):
        e. the entry point: aid_tpu_torch.train.main runs 4 steps from the
           corpus (remat on, TF32 as the training default), checkpoints at 2
           and 4; a second main resumes from the step-2 checkpoint and
-          reaches step 4; step time, peak memory and launches per step;
+          reaches step 4; step time, peak memory and launches per step (the
+          steps replay the step program each main builds at its first step);
   7. multi-device (the port's torch.distributed path), full flagship width;
      while the ranks of 7b-7g run, this process runs 10a (light on device
      memory while the ranks' training steps peak), 7a, 7c's reference and
@@ -119,12 +127,23 @@ Phases (any failure exits non-zero before the last line is printed):
        d. a reference-layout ``.pt`` written from a seeded network loads back
           exactly, and ``test_inpainting`` with the plain version patched in
           agrees with the kernel run within phase 3's bf16 tolerance;
+       e. spectrogram inpainting, bandwidth extension, declipping, phase
+          retrieval, compressive sensing and ``rid`` inpainting, each through
+          its program at full width, one row, T=4 (seeded weights), under
+          cuDNN's deterministic switch, against the same task run eagerly on
+          the same noise (x and every Record field bit for bit; a second
+          run replays the same program, its launches read from the
+          counter, and agrees bit for bit as well): the difference, capture
+          time, walls,
+          ``memory_bytes()`` and launches of each; the BWE program built
+          with the plain version against its kernel program;
   10. the port learns (a: beside phase 7's ranks), and the user tools (b-g:
      after 8d, in its work directory), bf16 serving at full flagship width
      unless said:
        a. the learning gate: ``scripts/e2e_smoke_torch.run`` trains the tiny
           CQTDiff+ on synthetic chords (SMOKE_L 16384, 400 steps at batch 8,
-          f32 with TF32 convs) and inpaints a 50 ms gap with its EMA before
+          f32 with TF32 convs, every step replayed from the trainer's step
+          program) and inpaints a 50 ms gap with its EMA before
           and after (T=25, order 2, xi=0.25, bf16); it must lift the gap SNR
           by >= 4.0 dB and cut the gap LSD to <= 0.95 of the untrained
           net's (the JAX package's pinned gates); the trained EMA sampled
@@ -214,7 +233,29 @@ def phase_time(name):
         log(json.dumps({"phase": name, "seconds": PHASE_S[name],
                         "allocated_gb": torch.cuda.memory_allocated() / 2 ** 30,
                         "reserved_gb": torch.cuda.memory_reserved() / 2 ** 30,
-                        "card_used_gb": (total - free) / 2 ** 30}))
+                        "card_used_gb": (total - free) / 2 ** 30, **pinned(torch)}))
+
+
+def pinned(torch):
+    """What keeps this process's reserved memory after ``empty_cache``: the
+    segments that hold a live block (their sizes, the bytes live in the
+    five largest), the CUDA graphs that only a reference cycle kept alive
+    (freed by the collection here; programs are meant to be freed by
+    reference counting), and the graphs still alive."""
+    def graphs():
+        return sum(isinstance(o, torch.cuda.CUDAGraph) for o in gc.get_objects())
+
+    before = graphs()
+    gc.collect()
+    alive = graphs()
+    torch.cuda.empty_cache()
+    segs = [(s["total_size"], s["allocated_size"], s.get("segment_pool_id"))
+            for s in torch.cuda.memory.memory_snapshot() if s["allocated_size"] > 0]
+    segs.sort(key=lambda t: -t[0])
+    return {"pinned_segments": len(segs), "pinned_gb": sum(t[0] for t in segs) / 2 ** 30,
+            "largest_pinned_mb": [[t[0] / 2 ** 20, t[1] / 2 ** 20, str(t[2])]
+                                  for t in segs[:5]],
+            "graphs_in_cycles": before - alive, "graphs_alive": alive}
 
 
 def fail(msg):
@@ -697,7 +738,7 @@ def phase_serving(torch, fa, np, batches, card):
     with plain_forced(fa):
         n0 = fa.launch_count()
         plain_prog = svc.sampler.compile_inpainting(y, m)
-        plain = plain_prog.run(prior, churn, y, m, smooth).float().cpu().numpy()
+        plain = plain_prog.run(prior, churn, y=y, mask=m, smooth=smooth).float().cpu().numpy()
         torch.cuda.synchronize()
         plain_launches = fa.launch_count() - n0
     got = calls[0][3]
@@ -710,6 +751,7 @@ def phase_serving(torch, fa, np, batches, card):
             and plain_prog.launches_per_run() == 0 and rec["rel_err"] <= BF16_TOL
             and cmp["observed_exact"] and np.isfinite(plain).all()):
         fail(f"the plain-version program: {rec}")
+    del svc._run_batch   # no cycle: freed by reference counting
     del svc
     gc.collect()
     torch.cuda.empty_cache()
@@ -864,6 +906,7 @@ def phase_serving_44k(torch, fa, np, work, card):
     cmp["observed_exact"] = rec44["observed_exact"]
     cmp["eager_rtf"] = rec44["seconds_of_audio"] / cmp["eager_trajectory_s"]
     cmp["program_rtf"] = rec44["rtf"]
+    del svc._footprint, svc._run_batch, svc.inpaint   # no cycle: freed by reference counting
     del svc
     gc.collect()
     torch.cuda.empty_cache()
@@ -1009,32 +1052,35 @@ def phase_train_steps(torch, fa, np, corpus, work, card):
     del x, y
 
     log("== phase 6b: one training step, kernel vs plain (full width, batch 4, f32, "
-        "mixed 44.1/48 kHz batch)")
+        "mixed 44.1/48 kHz batch): the plain version's step eagerly, the kernel's through "
+        "the step program compile_step builds (6b')")
     p0 = [p.detach().clone() for p in tr.params]
-    out = {}
-    for plain in (False, True):
-        with plain_forced(fa) if plain else contextlib.nullcontext():
-            tr.init_state()
-            torch.cuda.synchronize()
-            fa.reset_launch_count()
-            t0 = time.time()
-            m = tr.train_step(audio, fs, draws[0])
-            out[plain] = (float(m["loss"]), float(m["grad_norm"]), fa.launch_count(),
-                          time.time() - t0)
-        unchanged = all(torch.equal(a, b) for a, b in zip(tr.params, p0))
-        if not unchanged:
-            fail("the first training step moved the parameters (lr must be 0)")
-    (lk, gk, nk, _), (lp, gp, n_plain, _) = out[False], out[True]
+    with plain_forced(fa):
+        tr.init_state()
+        torch.cuda.synchronize()
+        fa.reset_launch_count()
+        m = tr._train_step(audio, fs, draws[0], program=False)
+        lp, gp, n_plain = float(m["loss"]), float(m["grad_norm"]), fa.launch_count()
+    if not all(torch.equal(a, b) for a, b in zip(tr.params, p0)):
+        fail("the first training step moved the parameters (lr must be 0)")
+    program, step1 = phase_train_program(torch, fa, np, tr, batches, draws, per_fwd, card)
+    lk, gk, nk = step1["loss"], step1["grad_norm"], step1["launches"]
     rec = {"check": "train_step", "loss": lk, "plain_loss": lp, "grad_norm": gk,
            "plain_grad_norm": gp, "loss_rel_err": abs(lk - lp) / abs(lp),
            "grad_norm_rel_err": abs(gk - gp) / abs(gp), "tol": 1e-4,
-           "launches": nk, "plain_launches": n_plain, "params_unchanged_after_step_1": True}
+           "launches": nk, "plain_launches": n_plain,
+           "params_unchanged_after_step_1": step1["params_unchanged"]}
     log(json.dumps(rec))
     if not (math.isfinite(lk) and math.isfinite(gk) and rec["loss_rel_err"] <= 1e-4
             and rec["grad_norm_rel_err"] <= 1e-4):
         fail(f"training step, kernel vs plain: {rec}")
+    if not step1["params_unchanged"]:
+        fail("the first training step moved the parameters (lr must be 0)")
+    # the replayed step launches what its capture recorded (compile_step's
+    # warm-up launched as many)
     if nk != 2 * per_fwd or n_plain != 0:
-        fail(f"expected {2 * per_fwd} kernel launches in a remat training step: {rec}")
+        fail(f"expected {2 * per_fwd} kernel launches in a replayed remat training step: "
+             f"{rec}")
 
     log("== phase 6c: gradients with remat 'block' and 'conv' against no remat (TF32 off); "
         "time and peak memory of each with TF32 off and on")
@@ -1117,7 +1163,86 @@ def phase_train_steps(torch, fa, np, corpus, work, card):
     gc.collect()
     torch.cuda.empty_cache()
     return {"step_s_tf32_off": float(np.median(times[1:])), "peak_gb": mem,
-            "launches_per_step": 2 * per_fwd, "launches_per_forward": per_fwd}
+            "launches_per_step": 2 * per_fwd, "launches_per_forward": per_fwd,
+            "program": program}
+
+
+def phase_train_program(torch, fa, np, tr, batches, draws, per_fwd, card):
+    """6b': ``compile_step`` leaves the state, ``it`` and the random stream
+    as they were; step 1 replays the program (6b's kernel step); from step
+    1's state, the captured step (replayed once) against the eager step
+    (run before and after it) on the same batch and draws: the loss and the
+    update's relative L2 distance from the first eager step's, beside the
+    second eager step's;
+    walls, the program's memory and launches. Returns its summary and step
+    1's loss, norm, launches and whether it left the parameters."""
+    log("== phase 6b': the captured training step against the eager step (TF32 off)")
+    (a0, f0), d0 = batches[0], draws[0]
+    (a1, f1), d1 = batches[1], draws[1]
+    tr.init_state()
+    state = [t.detach().clone() for t in tr._state()]
+    rng, it = tr.gen.get_state(), tr.it
+    torch.cuda.synchronize()
+    t0 = time.time()
+    prog = tr.compile_step(a0, f0)
+    torch.cuda.synchronize()
+    compile_s = time.time() - t0
+    unchanged = (all(torch.equal(a, b) for a, b in zip(tr._state(), state)) and tr.it == it
+                 and torch.equal(tr.gen.get_state(), rng))
+    del state
+    p0 = [p.detach().clone() for p in tr.params]
+    torch.cuda.synchronize()
+    fa.reset_launch_count()
+    m = tr.train_step(a0, f0, d0)                # step 1 (lr 0), replayed
+    step1 = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+             "launches": fa.launch_count(),
+             "params_unchanged": all(torch.equal(a, b) for a, b in zip(tr.params, p0))}
+    del p0
+    p1, it = [p.detach().clone() for p in tr.params], tr.it
+    res = {}
+    for route in ("eager", "program", "eager"):
+        restore = tr._snapshot()
+        torch.cuda.synchronize()
+        n0, t0 = fa.launch_count(), time.time()
+        m = tr._train_step(a1, f1, d1, program=route == "program")
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        res.setdefault(route, []).append({
+            "wall_s": time.time() - t0, "loss": loss, "launches": fa.launch_count() - n0,
+            "params": [p.detach().clone() for p in tr.params]})
+        restore()
+        tr.it = it
+    ref = res["eager"][0]["params"]
+    den = sum(((b - a).double() ** 2).sum().item() for a, b in zip(p1, ref))
+
+    def dist(ps):
+        return (sum(((a - b).double() ** 2).sum().item() for a, b in zip(ps, ref))
+                / den) ** 0.5 if den else float("inf")
+
+    rec = {"check": "train_step_program", "compile_step_s": compile_s,
+           "compile_step_leaves_state": unchanged, "program": prog.report(),
+           "loss": {k: [r["loss"] for r in v] for k, v in res.items()},
+           "update_rel_l2_vs_eager": {k: [dist(r["params"]) for r in v] for k, v in res.items()},
+           "wall_s": {k: [r["wall_s"] for r in v] for k, v in res.items()},
+           "launches": {k: [r["launches"] for r in v] for k, v in res.items()},
+           "step_programs_built": tr.step_programs_built, "card": card}
+    for v in res.values():
+        for r in v:
+            del r["params"]
+    log(json.dumps(rec))
+    spread = rec["update_rel_l2_vs_eager"]["eager"][1]
+    loss_e = rec["loss"]["eager"]
+    ok = (unchanged and prog.graph is not None and den > 0
+          and all(abs(x - loss_e[0]) <= 1e-5 * abs(loss_e[0]) for x in rec["loss"]["program"])
+          and all(d <= max(2 * spread, 1e-5) for d in rec["update_rel_l2_vs_eager"]["program"])
+          and rec["launches"]["program"] == [prog.launches] == [2 * per_fwd]
+          and rec["launches"]["eager"] == [2 * per_fwd] * 2)
+    if not ok:
+        fail(f"the captured training step: {rec}")
+    return {"compile_step_s": compile_s, "memory_bytes": prog.memory_bytes(),
+            "capture_s": prog.capture_s, "eager_step_s": rec["wall_s"]["eager"],
+            "replayed_step_s": rec["wall_s"]["program"],
+            "update_rel_l2_vs_eager": rec["update_rel_l2_vs_eager"]}, step1
 
 
 def phase_train_entry(torch, fa, np, corpus, work, card):
@@ -1144,14 +1269,18 @@ def phase_train_entry(torch, fa, np, corpus, work, card):
                 fail("the resumed main does not hold the step-2 checkpoint's state")
         before = [p.detach().clone() for p in self.params] if it0 < 2 else None
         torch.cuda.synchronize()
-        n0 = fa.launch_count()
+        n0, b0 = fa.launch_count(), self.step_programs_built
         t0 = time.time()
         m = orig(self, audio, fs, draws)
         loss = float(m["loss"])
         torch.cuda.synchronize()
+        built = self.step_programs_built - b0
+        # a step that builds the step program runs its warm-up step eagerly too
         rec = {"run": 2 if "resumed_from" in expect else 1, "it": self.it,
                "wall_s": time.time() - t0, "launches": fa.launch_count() - n0,
-               "expected_launches": launches_per_forward(self.net) * (2 if self.net.remat else 1),
+               "step_programs_built": built,
+               "expected_launches": launches_per_forward(self.net) * (2 if self.net.remat else 1)
+               * (1 + built),
                "remat": bool(self.net.remat), "loss": loss, "rates": sorted({int(v) for v in fs})}
         if before is not None:
             rec["params_changed"] = any(not torch.equal(a, b)
@@ -1203,6 +1332,7 @@ def phase_train_entry(torch, fa, np, corpus, work, card):
           and all(math.isfinite(s["loss"]) for s in steps)
           and run1[0]["params_changed"] is False and run1[1]["params_changed"] is True
           and all(s["remat"] and s["launches"] == s["expected_launches"] for s in steps)
+          and [s["step_programs_built"] for s in steps] == [1, 0, 0, 0, 1, 0]
           and launches == sum(s["launches"] for s in steps)
           and rec["mixed_rate_steps"] > 0
           and all(torch.isfinite(v).all() for v in final["network"].values()))
@@ -1240,6 +1370,7 @@ def phase_training(torch, fa, np, work, card, shapes):
                                      for k, v in steps["peak_gb"].items()},
                                  "launches_per_step": steps["launches_per_step"],
                                  "launches_per_forward": steps["launches_per_forward"],
+                                 "step_program": steps["program"],
                                  "card": card}}))
     return entry["launches"], worst
 
@@ -1545,6 +1676,7 @@ def rank_serve(torch, fa, np, inp, rank, work):
            "finite": bool(np.isfinite(got).all()), "launches": launches,
            "expected_launches": 90 * steps * len(rounds),
            "programs": len(svc.sampler._programs)}
+    del svc._run_batch   # no cycle: freed by reference counting
     del svc
     gc.collect()
     torch.cuda.empty_cache()
@@ -2005,9 +2137,9 @@ def phase_testing_ab(torch, fa, np, work, card):
     # trajectories of 8b: unconditional 1, MUSHRA 4, short gaps, spectrogram,
     # bwe, declipping, comp_sens, phase retrieval 1 each, autoregressive 2
     trajectories_b = 1 + 4 + 6 + 2
-    # each program built (a: inpainting; b: unconditional and inpainting,
-    # shared by the modes of one shape) ran its two steps once, eagerly,
-    # before its capture
+    # each program built (a: inpainting; b: one per task, the unconditional
+    # and inpainting ones shared by the modes of one shape) ran its two steps
+    # once, eagerly, before its capture
     builds = {"a": len(built_a), "b": len(built_b)}
     expect_calls = {"a": 2 * 35 - 1 + warmup_scores(built_a),
                     "b": (2 * EVAL_T - 1) * trajectories_b + warmup_scores(built_b)}
@@ -2035,7 +2167,7 @@ def phase_testing_ab(torch, fa, np, work, card):
              "gap_rms": float(np.sqrt(np.mean(rec[gap] ** 2))), "card": card}
     log(json.dumps(rec_a))
     ok = (loaded and got_calls == expect_calls and launches == rec_a["expected_launches"]
-          and builds == {"a": 1, "b": 2}
+          and builds == {"a": 1, "b": 7}
           and set(tb.seconds) == set(OTHER_MODES) and scored == 6 and far_err <= LSB
           and rec_a["gap_rms"] > 0)
     if not ok:
@@ -2053,8 +2185,8 @@ def audio_io_read(path):
 
 
 def phase_testing_c(torch, fa, np, work, card, ab):
-    """8c on the evaluation path (launches counted), then 8d; ``ab`` is
-    what ``phase_testing_ab`` returned."""
+    """8c on the evaluation path (launches counted), then 8d and 8e; ``ab``
+    is what ``phase_testing_ab`` returned."""
     from aid_tpu_torch import train as ttrain
     launches_ab, per_fwd, summary = ab
     corpus = os.path.join(work, "maestro")
@@ -2082,20 +2214,157 @@ def phase_testing_c(torch, fa, np, work, card, ab):
     rec = {"check": "testing_c", "demo_main_wall_s": wall_c, "denoiser_calls": calls[0],
            "expected_calls": expect, "programs_built": len(built),
            "demo_program": built, "demo_memory": demo_peak.report(),
-           "launches": launches, "expected_launches": per_fwd * (calls[0] + 2),
+           "launches": launches, "expected_launches": per_fwd * (calls[0] + 4),
            "wavs_written_finite": len(written),
            "demo_rms": float(np.sqrt(np.mean(demo ** 2))), "card": card}
     log(json.dumps(rec))
-    # + 2: one remat training step's forward and recomputation
+    # + 4: one remat training step's forward and recomputation, twice: the
+    # step program's warm-up, then its replay
     if not (calls[0] == expect and len(built) == 1 and launches == rec["expected_launches"]
             and rec["demo_rms"] > 0):
         fail(f"evaluation path (the in-training demo): {rec}")
     gc.collect()
     torch.cuda.empty_cache()
     plain = phase_testing_plain(torch, fa, np, corpus, work)
-    return launches_ab + launches, summary | plain | {"demo_memory": demo_peak.report(),
-                                                      "demo_program_memory_bytes": [
-                                                          r["memory_bytes"] for r in built]}
+    launches_tasks, tasks = phase_task_programs(torch, fa, np, card)
+    return launches_ab + launches + launches_tasks, summary | plain | {
+        "demo_memory": demo_peak.report(),
+        "demo_program_memory_bytes": [r["memory_bytes"] for r in built],
+        "task_programs": tasks}
+
+
+TASK_PROGRAMS = ["spectrogram_inpainting", "bwe", "declipping", "phase_retrieval", "compsens",
+                 "rid"]
+
+
+def task_call(torch, s, task, x, nz):
+    """One call of the sampler ``s``'s ``task`` on the signal ``x`` [1, L]
+    (the evaluation modes' observations), noise ``nz``; "rid" is guided
+    inpainting of a 1500 ms centre gap (at most L/4) with a recording
+    sampler."""
+    from aid_tpu_torch.sampling import degradations as degr
+    stft = s.args.tester.spectrogram_inpainting.stft
+    L, fs = x.shape[-1], float(s.args.exp.sample_rate)
+    if task == "spectrogram_inpainting":
+        n_fft, hop = int(stft.n_fft), int(stft.hop_length)
+        m = torch.ones(n_fft // 2 + 1, 1 + (L + n_fft - L % n_fft) // hop, device=x.device)
+        m[50:200, 300:380] = 0.0
+        return s.predict_spectrogram_inpainting(degr.spectral_mask(m, stft)(x), m, **nz)
+    if task == "bwe":
+        return s.predict_bwe(degr.bwe_lowpass("firwin", 200, 1000.0, fs)(x), 1000.0, fs, **nz)
+    if task == "declipping":
+        cv = degr.clip_value_from_sdr(x, 3.0)
+        return s.predict_declipping(degr.hard_clip(cv)(x), cv, **nz)
+    if task == "phase_retrieval":
+        return s.predict_phase_retrieval(degr.stft_magnitude(stft)(x), tuple(x.shape), **nz)
+    if task == "compsens":
+        gen = torch.Generator(device=x.device).manual_seed(1)
+        m = degr.compsens_mask(tuple(x.shape), 20.0, gen, x.device)
+        return s.predict_compsens(x * m, m, **nz)
+    gap = min(int(1.5 * fs), L // 4)
+    mask = torch.ones_like(x)
+    mask[:, (L - gap) // 2:(L + gap) // 2] = 0.0
+    return s.predict_inpainting(x * mask, mask, **nz)
+
+
+def phase_task_programs(torch, fa, np, card):
+    """8e: the five other tasks and ``rid`` through their programs at full
+    flagship width, one row, T=EVAL_T, bf16 (seeded weights, trained-like
+    gates), under cuDNN's deterministic switch: each equal to the same task
+    run eagerly on the same noise and inputs (x and, for rid, every Record
+    field), bit for bit, with its capture time,
+    ``memory_bytes()`` and launches; a second run replays the same program
+    (no new one is built) and launches what the program recorded, read from
+    the counter; then one task's program built with the plain version
+    against its kernel program."""
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
+    from aid_tpu_torch.sampling import heun
+    from aid_tpu_torch.utils.config import compose
+    log(f"== phase 8e: the other tasks' and rid's programs against eager heun_sample, full "
+        f"width, T={EVAL_T}, bf16, cuDNN deterministic")
+    # with TF32 off cuDNN's gradient of BWE's one-channel conv1d is not
+    # deterministic (scripts/probe_spread_torch.py bwe): under its
+    # deterministic switch every program must equal its eager run exactly
+    torch.backends.cudnn.deterministic = True
+    args = compose(overrides=[f"tester.T={EVAL_T}"])
+    net = tsetup.setup_network(args, device="cuda", seed=0)
+    net.init_weights(0, gate_scale=MAIN_SCALE)             # trained-like gates
+    diff = tsetup.setup_diff_parameters(args)
+    L, dev = int(args.exp.audio_len), next(net.parameters()).device
+    x = torch.from_numpy(music(np, L, int(args.exp.sample_rate), 41))[None].to(dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    per_fwd = launches_per_forward(net)
+    launches, out, answers = 0, {}, {}
+    for task in TASK_PROGRAMS:
+        s = tsetup.setup_sampler(args, net, diff, rid=task == "rid")
+        prior, churn = heun.draw_noise((1, L), s.cfg.T, gen, dev)
+        nz = dict(prior=prior, churn=churn)
+        torch.cuda.synchronize()
+        fa.reset_launch_count()
+        t0 = time.time()
+        got = task_call(torch, s, task, x, nz)
+        torch.cuda.synchronize()
+        wall, n = time.time() - t0, fa.launch_count()
+        (prog,) = s._programs.values()
+        n1, t0 = fa.launch_count(), time.time()
+        again = task_call(torch, s, task, x, nz)        # replays only
+        torch.cuda.synchronize()
+        replay_s, n_again = time.time() - t0, fa.launch_count() - n1
+        same = list(s._programs.values()) == [prog]
+        again = again[0] if task == "rid" else again
+        s.programs_enabled = lambda: False
+        t0 = time.time()
+        ref = task_call(torch, s, task, x, nz)
+        torch.cuda.synchronize()
+        eager_s = time.time() - t0
+        got, ref = ([got[0], *got[1]], [ref[0], *ref[1]]) if task == "rid" else ([got], [ref])
+        diff_abs = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+        rel = max(float((g.float() - r.float()).abs().max() / r.float().abs().max())
+                  for g, r in zip(got, ref))
+        rep = prog.report()
+        out[task] = {"max_abs_diff": diff_abs, "rel_err": rel, "capture_s": rep["capture_s"],
+                     "memory_bytes": rep["memory_bytes"], "static_bytes": rep["static_bytes"],
+                     "key": rep["key"], "launches": n, "replayed_run_launches": n_again,
+                     "one_program": same, "build_and_run_s": wall,
+                     "replayed_run_s": replay_s, "eager_s": eager_s, "record_fields": len(got),
+                     "replay_rel_diff": float((again.float() - got[0].float()).abs().max()
+                                              / got[0].float().abs().max())}
+        ok = (rep["graphs"] and diff_abs == 0.0 and out[task]["replay_rel_diff"] == 0.0
+              and all(torch.isfinite(g).all() for g in got)
+              and n == per_fwd * (rep["scores"]["body"] + rep["scores"]["last"])
+              + rep["launches_per_run"]
+              and rep["launches_per_run"] == per_fwd * rep["scores_per_run"]
+              and same and n_again == rep["launches_per_run"]
+              and len(got) == (7 if task == "rid" else 1))
+        log(json.dumps({"check": "task_program", "task": task, **out[task], "card": card}))
+        if not ok:
+            fail(f"the {task} program: {out[task]}")
+        launches += n + n_again
+        answers[task] = (got[0], nz)
+        del s, prog, got, ref, again
+        torch.cuda.empty_cache()
+    # the same bwe program built with the plain version
+    s = tsetup.setup_sampler(args, net, diff)
+    kernel, nz = answers["bwe"]
+    with plain_forced(fa):
+        fa.reset_launch_count()
+        plain = task_call(torch, s, "bwe", x, nz)
+        torch.cuda.synchronize()
+        plain_launches = fa.launch_count()
+    rel = float((kernel.float() - plain.float()).abs().max() / plain.float().abs().max())
+    rec = {"check": "task_program_kernel_vs_plain", "task": "bwe", "rel_err": rel,
+           "tol": BF16_TOL, "plain_launches": plain_launches,
+           "plain_program_graphs": next(iter(s._programs.values())).graphs is not None}
+    log(json.dumps(rec))
+    if not (rel <= BF16_TOL and plain_launches == 0 and rec["plain_program_graphs"]):
+        fail(f"the bwe program, kernel vs plain: {rec}")
+    del s, net
+    torch.backends.cudnn.deterministic = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bwe_kernel_vs_plain_rel_err"] = rel
+    return launches, out
 
 
 def phase_testing_plain(torch, fa, np, corpus, work):
@@ -2136,7 +2405,10 @@ def phase_testing_plain(torch, fa, np, corpus, work):
         tester._save_triplet = spy
         with plain_forced(fa) if plain else contextlib.nullcontext():
             tester.test_inpainting(mode="inpainting_plain" if plain else "inpainting_kernel")
-        tester._save_triplet = save
+        # drop the instance's attribute: setting the bound method back on the
+        # instance would be a cycle (tester -> method -> tester) that keeps the
+        # tester's programs alive until a collection
+        del tester._save_triplet
         out[plain] = saved["test_piece"]
     k, p = out[False], out[True]
     rel = float(np.abs(k - p).max() / np.abs(p).max())
@@ -2223,8 +2495,11 @@ def phase_learning(torch, fa, np, work, card, launches):
               check_launch_shapes(torch, fa, shapes, gelu, torch.bfloat16, [1], gen))
     scores = 2 * int(res["args"].tester.T) - 1
     # two sampling runs (untrained, trained), each through a program whose
-    # warm-up evaluated its steps once
-    expected = per_fwd * (res["its"] + 2 * scores + warmup_scores(built))
+    # warm-up evaluated its steps once; the training steps replay the step
+    # program, whose build ran one step eagerly
+    (step_prog,) = res["step_programs"]
+    expected = (per_fwd * (res["its"] + 2 * scores + warmup_scores(built))
+                + step_prog["warmup_launches"])
     rec = {"check": "learning_gate", **{k: res[k] for k in (
         "its", "L", "dtype", "snr_untrained_db", "snr_trained_db", "snr_gain_db",
         "lsd_gap_trained", "lsd_gap_untrained", "lsd_gap_ratio", "s_per_it", "train_s",
@@ -2232,13 +2507,15 @@ def phase_learning(torch, fa, np, work, card, launches):
         "launches_per_sampling_run")},
            "gates": {"min_snr_gain_db": cfg["min_gain_db"], "max_lsd_ratio": cfg["max_lsd_ratio"]},
            "pass": res["ok"], "launches": launches["learning"], "expected_launches": expected,
-           "programs": built,
+           "programs": built, "step_program": step_prog,
            "plain_vs_kernel_rel_err": rel_plain, "plain_launches": plain_launches,
            "tol": BF16_TOL, "launch_shapes": {f"{r}x{c}": n for (r, c), n in sorted(shapes.items())},
            "launch_shapes_max_abs_err": err, "card": card}
     log(json.dumps(rec))
     if not (res["ok"] and rel_plain <= BF16_TOL and plain_launches == 0 and len(built) == 2
-            and launches["learning"] == expected and np.isfinite(rec_plain).all()):
+            and launches["learning"] == expected and np.isfinite(rec_plain).all()
+            and step_prog["graph"] and step_prog["replays"] == res["its"]
+            and step_prog["launches_per_replay"] == per_fwd == step_prog["warmup_launches"]):
         fail(f"the learning gate: {rec}")
     del net, res
     gc.collect()

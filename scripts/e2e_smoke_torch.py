@@ -3,11 +3,12 @@ synthetic chords, then inpaint a gap with the trained EMA weights and hold
 the result to the JAX package's pinned quality gates.
 
 Proves that the whole loop (data -> training step with the fused kernel in
-every forward -> EMA -> checkpoint -> guided sampler with data consistency)
-learns, without a dataset or a released checkpoint: the gap SNR after
-training must beat the untrained network's on the same task by at least
-``SMOKE_MIN_SNR_GAIN_DB``, and the in-gap log-spectral distance must fall to
-at most ``SMOKE_MAX_LSD_RATIO`` of the untrained network's. The tiny
+every forward, replayed from the trainer's step program -> EMA ->
+checkpoint -> guided sampler with data consistency) learns, without a
+dataset or a released checkpoint: the gap SNR after training must beat
+the untrained network's on the same task by at least
+``SMOKE_MIN_SNR_GAIN_DB``, and the in-gap log-spectral distance must fall
+to at most ``SMOKE_MAX_LSD_RATIO`` of the untrained network's. The tiny
 network, the chord generator, the 50 ms centre gap and the thresholds are
 those of the JAX package's ``scripts/e2e_smoke.py``.
 
@@ -190,6 +191,9 @@ def run(cfg: dict, device=None) -> dict:
     final_it = trainer.training_loop()
     _sync(dev)
     train_s, train_launches = time.time() - t0, fa.launch_count() - n0
+    # the loop's steps replay the trainer's step program (a CUDA graph on the
+    # card): its build ran one more step as the warm-up, launches counted
+    step_programs = [p.report() for p in trainer._step_programs.values()]
     print(f"trained {final_it} its in {train_s:.1f}s", flush=True)
     os.makedirs(cfg["model_dir"], exist_ok=True)
     ckpt_path = trainer.save_checkpoint()      # network and EMA, for offline study
@@ -241,6 +245,7 @@ def run(cfg: dict, device=None) -> dict:
             "train_s": train_s, "s_per_it": train_s / max(final_it, 1),
             "sample_untrained_s": sample0_s, "sample_trained_s": sample_s,
             "launches_per_train_step": train_launches / max(final_it, 1),
+            "train_launches": train_launches, "step_programs": step_programs,
             "launches_per_sampling_run": sample_launches, "checkpoint": ckpt_path,
             "args": args, "ediff": ediff, "ema": ema, "y_masked": y_masked, "mask": mask,
             "rec": rec}

@@ -4,6 +4,9 @@ imports no JAX, so it runs on the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
 """
+import gc
+import weakref
+
 import pytest
 import torch
 
@@ -77,8 +80,9 @@ def test_tiny_denoiser_launches_once_per_layer(cuda, monkeypatch):
 
 def test_tiny_training_steps_on_the_card_match_the_cpu(cuda, tmp_path):
     """Two remat training steps of the tiny net on mixed-rate native audio,
-    on the card and on the CPU from the same weights and draws: the kernel
-    launches in the forward and again in the recomputation, and loss,
+    on the card (the captured step program) and on the CPU from the same
+    weights and draws: the kernel launches in the forward and again in the
+    recomputation (and in the program's warm-up), and loss,
     pre-clip gradient norm and the update agree (f32, TF32 off; the two
     devices sum in other orders)."""
     import numpy as np
@@ -106,7 +110,8 @@ def test_tiny_training_steps_on_the_card_match_the_cpu(cuda, tmp_path):
         fa.reset_launch_count()
         metrics = [tr.train_step(audio, fs, draws) for _ in range(2)]
         per_fwd = sum(m.num_dils for m in net.modules() if isinstance(m, tunet.AdaLNResBlock))
-        res[dev] = (fa.launch_count(), 2 * 2 * per_fwd,
+        # on the card the step program's build runs one more step as its warm-up
+        res[dev] = (fa.launch_count(), (2 + tr.step_programs_built) * 2 * per_fwd,
                     [(float(m["loss"]), float(m["grad_norm"])) for m in metrics],
                     [p.detach().cpu() - a for p, a in zip(tr.params, p0)])
     assert res["cpu"][0] == 0 and res["cuda"][0] == res["cuda"][1]
@@ -156,3 +161,182 @@ def test_tiny_program_graphs_equal_eager(cuda):
     kept = got.clone()
     other = s.predict_inpainting(0.5 * y, mask, prior=churn[0], churn=churn.flip(0))
     assert torch.equal(got, kept) and not torch.equal(got, other)
+
+
+TINY_SAMPLER = ["network.cqt.num_octs=3", "network.cqt.bins_per_oct=8", "exp.audio_len=2048",
+                "exp.sample_rate=4096", "network.Ns=[8,16,16]", "network.num_dils=[1,2,2]",
+                "network.attention_layers=[0,1,1,1]", "network.emb_dim=32",
+                "network.attention_dict.num_heads=2", "network.compute_dtype=float32",
+                "tester.T=4", "tester.spectrogram_inpainting.stft.n_fft=256",
+                "tester.spectrogram_inpainting.stft.hop_length=64",
+                "tester.spectrogram_inpainting.stft.win_length=256"]
+TASKS = ["inpainting", "unconditional", "spectrogram_inpainting", "bwe", "declipping",
+         "phase_retrieval", "compsens", "inpainting_rid"]
+
+
+def _task_call(s, task, x, gen, noise):
+    """A call of the sampler's ``task`` on the signal ``x`` [2, 2048]."""
+    from aid_tpu_torch.sampling import degradations as degr
+    stft = s.args.tester.spectrogram_inpainting.stft
+    if task.startswith("inpainting"):
+        mask = torch.ones_like(x)
+        mask[:, 700:1100] = 0.0
+        return s.predict_inpainting(x * mask, mask, **noise)
+    if task == "unconditional":
+        return s.predict_unconditional(tuple(x.shape), **noise)
+    if task == "spectrogram_inpainting":
+        frames = 1 + (2048 + 256 - 2048 % 256) // 64
+        m = torch.ones(129, frames, device="cuda")
+        m[10:40, 6:14] = 0.0
+        return s.predict_spectrogram_inpainting(degr.spectral_mask(m, stft)(x), m, **noise)
+    if task == "bwe":
+        return s.predict_bwe(degr.bwe_lowpass("firwin", 64, 400.0, 4096.0)(x), 400.0, 4096.0,
+                             order=64, **noise)
+    if task == "declipping":
+        cv = degr.clip_value_from_sdr(x, 3.0)
+        return s.predict_declipping(degr.hard_clip(cv)(x), cv, **noise)
+    if task == "phase_retrieval":
+        return s.predict_phase_retrieval(degr.stft_magnitude(stft)(x), tuple(x.shape), **noise)
+    mask = degr.compsens_mask(tuple(x.shape), 20.0, gen, "cuda")
+    return s.predict_compsens(x * mask, mask, **noise)
+
+
+@pytest.mark.parametrize("task", TASKS)
+def test_tiny_task_programs_graphs_equal_eager(cuda, task):
+    """Each task's program (and ``rid``'s), captured as CUDA graphs, against
+    the same task run eagerly on the same noise and inputs (tiny net, f32,
+    TF32 off): a replayed run launches what its captures recorded, x and
+    every Record field agree, and the program's memory includes its buffers."""
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.sampling import heun
+    from aid_tpu_torch.utils.config import compose
+
+    args = compose(overrides=TINY_SAMPLER)
+    net = tsetup.setup_network(args, device="cuda", seed=0)
+    s = tsetup.setup_sampler(args, net, tsetup.setup_diff_parameters(args),
+                             rid=task.endswith("rid"))
+    x = torch.randn(2, 2048, generator=cuda, device="cuda") * 0.1
+    prior, churn = heun.draw_noise((2, 2048), s.cfg.T, cuda, "cuda")
+    noise = dict(prior=prior, churn=churn)
+    _task_call(s, task, x, torch.Generator(device="cuda").manual_seed(1), noise)   # builds
+    (prog,) = s._programs.values()
+    fa.reset_launch_count()
+    got = _task_call(s, task, x, torch.Generator(device="cuda").manual_seed(1), noise)
+    torch.cuda.synchronize()
+    assert prog.graphs is not None and fa.launch_count() == prog.launches_per_run() > 0
+    assert prog.memory_bytes() > prog.static_bytes()
+    s.programs_enabled = lambda: False
+    ref = _task_call(s, task, x, torch.Generator(device="cuda").manual_seed(1), noise)
+    got, ref = ([got[0], *got[1]], [ref[0], *ref[1]]) if s.rid else ([got], [ref])
+    assert len(got) == len(ref) == (7 if s.rid else 1)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(r).all()
+        assert ((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item() <= 1e-5
+
+
+def test_tiny_step_program_on_the_card(cuda, tmp_path):
+    """The trainer's captured step (tiny net, remat, f32, TF32 off):
+    ``compile_step`` leaves the state, ``it`` and the generator as they
+    were; the replayed step agrees with the eager step from the same state
+    and draws (loss to 1e-5, the update to 1e-4 in L2: cuDNN's weight
+    gradients may sum in another order), launches what its capture
+    recorded, and one step's metrics do not alias the next's."""
+    import numpy as np
+
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.train import compose_args
+
+    args = compose_args([
+        "exp.audio_len=2048", "exp.lr_rampup_it=1", "network.cqt.num_octs=3",
+        "network.cqt.bins_per_oct=8", "network.Ns=[8,16,16]", "network.num_dils=[1,1,1]",
+        "network.attention_layers=[0,0,1,1]", "logging.print_model_summary=False",
+        f"model_dir={tmp_path}"])
+    rng = np.random.default_rng(0)
+    audio = (rng.standard_normal((4, 4400)) * 0.1).astype(np.float32)
+    fs = np.array([44100, 48000, 44100, 48000])
+    net = tsetup.setup_network(args, device="cuda", seed=3, trainable=True)
+    tr = tsetup.setup_trainer(args, network=net, diff_params=tsetup.setup_diff_parameters(args))
+    tr.init_state()
+    # detached copies: a copy that kept the autograd graph would hold the
+    # parameters' gradient accumulators on this stream, and the capture fails
+    state = [t.detach().clone() for t in tr._state()]
+    gen, it = tr.gen.get_state(), tr.it
+    prog = tr.compile_step(audio, fs)
+    assert prog.graph is not None and prog.launches > 0 and prog.memory_bytes() > 0
+    assert all(torch.equal(a, b) for a, b in zip(tr._state(), state))
+    assert tr.it == it and torch.equal(tr.gen.get_state(), gen)
+    tr.train_step(audio, fs)                       # step 1 (lr 0), replayed
+    before, it = tr._snapshot(), tr.it
+    p1 = [p.detach().clone() for p in tr.params]
+    draws = tr.gen.get_state()
+    eager = tr._train_step(audio, fs, None, program=False)
+    p_eager = [p.detach().clone() for p in tr.params]
+    before()
+    tr.it = it
+    tr.gen.set_state(draws)
+    fa.reset_launch_count()
+    m = tr.train_step(audio, fs)
+    torch.cuda.synchronize()
+    assert tr.step_programs_built == 1 and fa.launch_count() == prog.launches
+    assert abs(float(m["loss"]) - float(eager["loss"])) <= 1e-5 * abs(float(eager["loss"]))
+    num = sum(float((a.detach() - b).double().pow(2).sum()) for a, b in zip(tr.params, p_eager))
+    den = sum(float((b - a).double().pow(2).sum()) for a, b in zip(p1, p_eager))
+    assert den > 0 and (num / den) ** 0.5 <= 1e-4
+    kept = {k: v.clone() for k, v in m.items() if torch.is_tensor(v)}
+    tr.train_step(audio, fs)
+    assert all(torch.equal(m[k], v) for k, v in kept.items())
+
+
+class _Cycle:
+    """Refers to itself: only a garbage collection frees it (and its graph)."""
+
+    def __init__(self, graph):
+        self.graph, self.me = graph, self
+
+
+def _dead_graph_in_a_cycle():
+    """A weak reference to a captured graph that only a cycle keeps alive."""
+    x = torch.ones(1024, device="cuda")
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        x.mul_(2)
+    torch.cuda.synchronize()
+    return weakref.ref(_Cycle(g))
+
+
+def test_no_collection_runs_during_a_capture(cuda):
+    """``utils.graphs.capture`` turns the collector off while it captures
+    and back on after: a program that a cycle keeps alive is not freed in
+    the middle of another program's capture."""
+    from aid_tpu_torch.utils import graphs
+    dead, seen = _dead_graph_in_a_cycle(), []
+
+    def fn():
+        seen.append(gc.isenabled())
+        return torch.full((8,), 3.0, device="cuda") * 2
+
+    g, out, launches, peak = graphs.capture(fn, graphs.capture_stream("cuda"), what="a probe")
+    assert seen == [False] and gc.isenabled() and dead() is not None and launches == 0
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((8,), 6.0, device="cuda")) and peak > 0
+    gc.collect()
+    assert dead() is None
+
+
+def test_a_graph_freed_inside_a_capture_breaks_it(cuda):
+    """Why no collection may run during a capture: freeing a graph (here
+    by a collection, as an automatic one would) while another is being
+    captured makes that capture fail."""
+    dead = _dead_graph_in_a_cycle()
+    y = torch.ones(8, device="cuda")
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(Exception, match="captur"):
+        with torch.cuda.graph(g):
+            y.mul_(2)
+            gc.collect()
+            y.mul_(2)
+    assert dead() is None
+    torch.cuda.synchronize()
+    z = torch.ones(8, device="cuda") * 2
+    assert float(z.sum()) == 16.0

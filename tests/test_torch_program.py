@@ -3,12 +3,17 @@ the CPU, where it runs ``heun_body`` and ``heun_last`` eagerly over its
 static buffers.
 
 Tiny U-Net (tests/test_torch_unet.py's configuration, weights carried
-across from JAX), T=4, f32: the program equals ``heun_sample`` bit for bit
-(inpainting and unconditional, order 1 and 2, data consistency at the end
-or every step) and the JAX ``heun_sample`` within ``TRAJ_TOL`` with JAX's
-noise injected; the sampler's cache returns the same program for the same
-key and a new one for a new shape, a patched fused function or replaced
-weights; runs do not alias; ``rid`` mode and a sharded service stay eager;
+across from JAX), T=4, f32: the program of each of the seven tasks, with
+and without ``rid`` recording, equals ``heun_sample`` over the same
+operators built on the request's tensors bit for bit (inpainting and
+unconditional also at order 1 and with data consistency at the end);
+inpainting and unconditional programs equal the JAX ``heun_sample``, and
+the five other tasks' programs the JAX ``Sampler``'s compiled programs
+(tests/test_torch_sampler_tasks.py's stand-in net), within ``TRAJ_TOL``
+with JAX's noise injected. The sampler's cache returns the same program
+for the same key and a new one for a new shape, a new BWE filter, a
+patched fused function or replaced weights, but not for a new mask, clip
+value or spectral mask; runs do not alias; a sharded service stays eager;
 ``precompile``, ``_compiled_for_batch`` and ``_footprint`` read the
 program (``memory_bytes`` stubbed: it measures CUDA memory).
 """
@@ -30,16 +35,22 @@ from aid_tpu_torch.diffusion import edm as tedm
 from aid_tpu_torch.ops import fused_adaln as fa
 from aid_tpu_torch.sampling import degradations as tdegr
 from aid_tpu_torch.sampling import heun as theun
+from aid_tpu_torch.sampling import program as tprog
 from aid_tpu_torch.sampling.program import HeunProgram
 from aid_tpu_torch.sampling.sampler import Sampler
 from aid_tpu_torch.serving import InpaintingService
+from aid_tpu_torch.utils import graphs
 from aid_tpu_torch.utils.config import compose
+from tests import test_torch_sampler_tasks as tasks_vs_jax
 from tests.test_torch_sampler import P, T_STEPS, TRAJ_TOL, _jax_noise, _problem, nets  # noqa: F401
 from tests.test_torch_serving import TINY
-from tests.test_torch_unet import jax_model, rel_err
+from tests.test_torch_unet import FS, jax_model, rel_err
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TP = tedm.EDMParams(**P)
+STFT = SimpleNamespace(n_fft=256, hop_length=64, win_length=256)
+TASKS = ["inpainting", "unconditional", "spectrogram_inpainting", "bwe", "declipping",
+         "phase_retrieval", "compsens"]
 
 
 def _denoise(net):
@@ -59,34 +70,95 @@ def _inputs(task, seed=2):
         if task == "inpainting" else (None, None, None)
 
 
-def _program(net, task, cfg, shape):
-    dtypes = {k: torch.float32 for k in ("x", "z", "y", "mask", "smooth")}
-    return HeunProgram(task, TP, cfg, _denoise(net), shape, dtypes, "cpu",
-                       hpf=net.cqt.apply_hpf_DC)
+def _spectral_mask(L):
+    frames = 1 + (L + STFT.n_fft - L % STFT.n_fft) // STFT.hop_length
+    m = torch.ones(STFT.n_fft // 2 + 1, frames)
+    m[10:40, 6:14] = 0.0
+    return m
 
 
-def _eager(net, task, cfg, shape, prior, churn, y, mask, smooth):
-    if task == "unconditional":
-        score = theun.make_score_fn(TP, cfg, _denoise(net), hpf=net.cqt.apply_hpf_DC)
-        return theun.heun_sample(shape, TP, cfg, score, prior=prior, churn=churn)
-    proj = tdegr.inpainting_projector(y, smooth)
-    score = theun.make_score_fn(TP, cfg, _denoise(net), y=y, degradation=tdegr.time_mask(mask),
+def _case(task, cfg, shape=(2, 2048)):
+    """(the port's Task, the config it runs under, its inputs, and the
+    eager reference's operators (observation, degradation, projection)
+    built on the inputs themselves, independently of the Task)."""
+    x = torch.from_numpy((np.random.default_rng(5).standard_normal(shape) * 0.1)
+                         .astype(np.float32))
+    generic = dataclasses.replace(cfg, guidance_eps="generic")
+    if task in ("inpainting", "unconditional"):
+        if task == "unconditional":
+            return tprog.unconditional(), cfg, {}, (None, None, None)
+        y, mask, smooth = _inputs(task)
+        proj = tdegr.inpainting_projector(y, smooth)
+        return (tprog.inpainting(), cfg, dict(y=y, mask=mask, smooth=smooth),
+                (y, tdegr.time_mask(mask), proj))
+    if task == "spectrogram_inpainting":
+        m = _spectral_mask(shape[1])
+        apply = tdegr.spectral_mask(m, STFT)
+        y = apply(x)
+        return (tprog.spectrogram_inpainting(STFT), cfg, dict(y=y, mask_FT=m),
+                (y, apply, tdegr.spectral_projector(y, apply)))
+    if task == "bwe":
+        lpf = tdegr.firwin_lowpass(64, 400.0, FS)
+        y = lpf(x)
+        return (tprog.bwe("firwin", 64, 400.0, FS), generic, dict(y=y),
+                (y, lpf, tdegr.spectral_projector(y, lpf)))
+    if task == "declipping":
+        cv = tdegr.clip_value_from_sdr(x, 3.0)
+        y = tdegr.hard_clip(cv)(x)
+        return (tprog.declipping(), generic, dict(y=y, clip_value=cv),
+                (y, tdegr.hard_clip(cv), None))
+    if task == "phase_retrieval":
+        mag = tdegr.stft_magnitude(STFT)
+        y = mag(x)
+        return tprog.phase_retrieval(shape, STFT), generic, dict(y_mag=y), (y, mag, None)
+    mask = tdegr.compsens_mask(shape, 20.0, torch.Generator().manual_seed(8))
+    cs = dataclasses.replace(generic, data_consistency=False, data_consistency_end=False)
+    return tprog.compsens(), cs, dict(y=x * mask, mask=mask), (x * mask, tdegr.time_mask(mask),
+                                                               None)
+
+
+def _program(net, task, cfg, inputs, shape=(2, 2048)):
+    buffers = {"x": (shape, torch.float32), "z": (shape, torch.float32),
+               **graphs.specs(inputs)}
+    return HeunProgram(task, TP, cfg, _denoise(net), buffers, "cpu", hpf=net.cqt.apply_hpf_DC)
+
+
+def _eager(net, cfg, shape, prior, churn, ops):
+    y, degradation, proj = ops
+    score = theun.make_score_fn(TP, cfg, _denoise(net), y=y, degradation=degradation,
                                 proj=proj, hpf=net.cqt.apply_hpf_DC)
     return theun.heun_sample(shape, TP, cfg, score, proj_end=proj, prior=prior, churn=churn)
 
 
-@pytest.mark.parametrize("dc_end", [False, True])
-@pytest.mark.parametrize("order", [1, 2])
-@pytest.mark.parametrize("task", ["inpainting", "unconditional"])
-def test_program_equals_heun_sample_bit_for_bit(nets, task, order, dc_end):
+CASES = ([(task, rid, 2, False) for task in TASKS for rid in (False, True)]
+         + [(task, False, order, dc_end) for task in ("inpainting", "unconditional")
+            for order, dc_end in ((1, False), (1, True), (2, True))])
+
+
+@pytest.mark.parametrize("task,rid,order,dc_end", CASES,
+                         ids=[f"{t}-{'rid' if r else 'x'}-order{o}-{'end' if e else 'always'}"
+                              for t, r, o, e in CASES])
+def test_program_equals_heun_sample_bit_for_bit(nets, task, rid, order, dc_end):
+    """Each task's program against ``heun_sample`` on the same noise: x and,
+    with ``rid``, every Record field [T, B, L]."""
     _, net = nets
     cfg = theun.SamplerConfig(T=T_STEPS, order=order, data_consistency=not dc_end,
-                              data_consistency_end=dc_end)
-    y, mask, smooth = _inputs(task)
-    shape = (2, y.shape[1]) if y is not None else (2, 2048)
+                              data_consistency_end=dc_end, record=rid)
+    t, cfg, inputs, ops = _case(task, cfg)
+    shape = (2, 2048)
     prior, churn = _noise(shape)
-    got = _program(net, task, cfg, shape).run(prior, churn, y, mask, smooth)
-    ref = _eager(net, task, cfg, shape, prior, churn, y, mask, smooth)
+    prog = _program(net, t, cfg, inputs)
+    assert prog.task == task
+    got = prog.run(prior, churn, **inputs)
+    ref = _eager(net, cfg, shape, prior, churn, ops)
+    if rid:
+        (got, got_rec), (ref, ref_rec) = got, ref
+        assert got_rec._fields == ref_rec._fields
+        for field in ref_rec._fields:
+            g, r = getattr(got_rec, field), getattr(ref_rec, field)
+            assert g.shape == r.shape == (T_STEPS,) + shape, field
+            assert torch.equal(g, r), field
+        assert prog.static_bytes() >= 6 * T_STEPS * 2 * 2048 * 4
     assert torch.isfinite(ref).all()
     assert torch.equal(got, ref)
 
@@ -118,12 +190,69 @@ def test_program_matches_jax(nets, task):
     key = jax.random.PRNGKey(11)
     ref = np.asarray(jax.jit(run_jax)(params, key))
     prior, churn = (torch.from_numpy(a) for a in _jax_noise(key, y.shape, T_STEPS))
-    prog = _program(net, task, theun.SamplerConfig(T=T_STEPS), y.shape)
-    args = (torch.from_numpy(y), torch.from_numpy(mask), torch.from_numpy(smooth)) \
-        if task == "inpainting" else ()
-    got = prog.run(prior, churn, *args)
+    inputs = dict(y=torch.from_numpy(y), mask=torch.from_numpy(mask),
+                  smooth=torch.from_numpy(smooth)) if task == "inpainting" else {}
+    t = tprog.inpainting() if task == "inpainting" else tprog.unconditional()
+    prog = _program(net, t, theun.SamplerConfig(T=T_STEPS), inputs, shape=y.shape)
+    got = prog.run(prior, churn, **inputs)
     assert np.isfinite(ref).all()
     assert rel_err(got.numpy(), ref) < TRAJ_TOL
+
+
+@pytest.fixture(scope="module")
+def stand_ins():
+    return tasks_vs_jax.JaxStandIn(), tasks_vs_jax.TorchStandIn()
+
+
+JAX_KEYS = {"spectrogram_inpainting": ("spec_inpaint",),
+            "bwe_firwin": ("bwe", "firwin", 400.0, FS, 64),
+            "declipping": ("declip",), "phase_retrieval": ("phase", (1, 2048)),
+            "compsens": ("compsens",)}
+
+
+@pytest.mark.parametrize("task", list(JAX_KEYS))
+def test_task_program_matches_the_jax_program(stand_ins, task):
+    """The port sampler's program of each task against the JAX ``Sampler``'s
+    compiled program of the same task (its ``_cached_program``), the same
+    inputs and JAX's noise injected, within ``TRAJ_TOL``; the port built
+    one program, under the JAX package's key."""
+    js, ts = tasks_vs_jax._samplers(stand_ins)
+    ref, got = tasks_vs_jax._run_task(js, ts, task, jax.random.PRNGKey(11))
+    assert ref.shape == got.shape == (1, 2048) and np.isfinite(ref).all()
+    assert rel_err(got, ref) < TRAJ_TOL
+    assert [k[0][0] for k in ts._programs] == [JAX_KEYS[task]]
+    assert len(js._programs) == 1 and list(js._programs)[0][0] == JAX_KEYS[task][0]
+
+
+def _task_call(ts, change, value, seed=1):
+    """One task call of the stand-in sampler whose ``change`` takes ``value``."""
+    x = tasks_vs_jax._signal(seed)
+    xt = torch.from_numpy(x)
+    gen = torch.Generator().manual_seed(seed)
+    if change == "bwe_fc":
+        lpf = tdegr.bwe_lowpass("firwin", 64, value, tasks_vs_jax.FS)
+        return ts.predict_bwe(lpf(xt), value, tasks_vs_jax.FS, order=64, generator=gen)
+    if change == "clip_value":
+        return ts.predict_declipping(torch.clamp(xt, -value, value), value, generator=gen)
+    stft = ts.args.tester.spectrogram_inpainting.stft
+    m = torch.from_numpy(tasks_vs_jax._spectral_mask(stft))
+    m[value:value + 20] = 0.0
+    return ts.predict_spectrogram_inpainting(tdegr.spectral_mask(m, stft)(xt), m,
+                                             generator=gen)
+
+
+@pytest.mark.parametrize("change,values,programs", [
+    ("bwe_fc", (400.0, 800.0), 2),          # the filter is static: a new program
+    ("clip_value", (0.05, 0.08), 1),        # traced in JAX: a buffer here
+    ("mask_FT", (20, 60), 1),
+])
+def test_task_cache_follows_the_jax_keys(stand_ins, change, values, programs):
+    _, ts = tasks_vs_jax._samplers(stand_ins)
+    outs = [_task_call(ts, change, v) for v in values]
+    assert len(ts._programs) == programs
+    assert not torch.equal(outs[0], outs[1]) and all(torch.isfinite(o).all() for o in outs)
+    again = _task_call(ts, change, values[0])        # the first value once more
+    assert len(ts._programs) == programs and torch.equal(again, outs[0])
 
 
 # ------------------------------------------------------------ the sampler
@@ -211,14 +340,28 @@ def test_runs_do_not_alias(sampler):
 
 
 def test_rid_mode_stays_eager(nets):
+    """(Named when ``rid`` ran eagerly.) ``rid`` recording runs through a
+    program now: the sampler builds one, and its x and Record equal
+    ``heun_sample``'s bit for bit on the same noise."""
     args = compose(overrides=["tester.T=3", "exp.audio_len=2048"])
     s = Sampler(nets[1], tedm.EDM(args), args, rid=True)
     y, mask = _request()
     x, rec = s.predict_inpainting(y, mask, generator=torch.Generator().manual_seed(1))
-    assert rec.xt.shape == (3, 2, 2048) and not s._programs and not s.programs_enabled()
-    with pytest.raises(ValueError, match="record"):
-        HeunProgram("inpainting", s.p, s.cfg, s._denoise, (2, 2048),
-                    dict.fromkeys(("x", "z", "y", "mask", "smooth"), torch.float32), "cpu")
+    assert rec.xt.shape == (3, 2, 2048) and s.programs_enabled()
+    (prog,) = s._programs.values()
+    assert prog.cfg.record and prog.records is not None
+    smooth = torch.from_numpy(tdegr.make_smooth_mask(mask.numpy(), s.hann_size))
+    proj = tdegr.inpainting_projector(y, smooth)
+    score = theun.make_score_fn(s.p, s.cfg, s._denoise, y=y, degradation=tdegr.time_mask(mask),
+                                proj=proj, hpf=s._hpf())
+    ref_x, ref = theun.heun_sample(tuple(y.shape), s.p, s.cfg, score, proj_end=proj,
+                                   generator=torch.Generator().manual_seed(1), device="cpu")
+    assert torch.equal(x, ref_x)
+    assert all(torch.equal(getattr(rec, f), getattr(ref, f)) for f in ref._fields)
+    kept = rec.denoised.clone()          # a second run writes the program's buffers again
+    s.predict_inpainting(y, mask, generator=torch.Generator().manual_seed(2))
+    assert torch.equal(rec.denoised, kept) and rec.denoised.data_ptr() != \
+        prog.records.denoised.data_ptr()
 
 
 def test_a_sharded_service_stays_eager(tmp_path):
@@ -285,37 +428,78 @@ def test_footprint_reads_memory_bytes(monkeypatch, max_batch, limit_gib):
 def test_program_checks_its_inputs(nets):
     _, net = nets
     cfg = theun.SamplerConfig(T=T_STEPS)
-    prog = _program(net, "inpainting", cfg, (2, 2048))
-    prior, churn = _noise((2, 2048))
     y, mask, smooth = _inputs("inpainting")
+    inputs = dict(y=y, mask=mask, smooth=smooth)
+    prog = _program(net, tprog.inpainting(), cfg, inputs)
+    prior, churn = _noise((2, 2048))
     with pytest.raises(ValueError, match="noise shapes"):
-        prog.run(prior[:1], churn, y, mask, smooth)
+        prog.run(prior[:1], churn, **inputs)
     with pytest.raises(ValueError, match="mask"):
-        prog.run(prior, churn, y, None, smooth)
-    with pytest.raises(ValueError, match="task"):
-        _program(net, "bwe", cfg, (2, 2048))
+        prog.run(prior, churn, y=y, mask=None, smooth=smooth)
+    with pytest.raises(ValueError, match="mask"):
+        prog.run(prior, churn, y=y, mask=mask[:1], smooth=smooth)
+    with pytest.raises(ValueError, match="inputs"):
+        prog.run(prior, churn, y=y, mask=mask)
+    with pytest.raises(ValueError, match="buffers"):
+        _program(net, tprog.bwe("firwin", 64, 400.0, FS), cfg, inputs)
     with pytest.raises(RuntimeError, match="CUDA"):
         prog.memory_bytes()
     assert dataclasses.asdict(prog.cfg) == dataclasses.asdict(cfg)
 
 
-@pytest.mark.parametrize("how", ["release_programs", "drop_the_sampler"])
-def test_programs_are_freed_without_a_garbage_collection(nets, how):
-    """A program holds the model, not its sampler: releasing the programs or
-    dropping the sampler frees them (and, on the card, their graph pool)
-    by reference counting alone."""
+def _tiny_tester(tmp_path, in_training):
+    from aid_tpu_torch import setup as tsetup
+    args = compose(overrides=TINY + ["tester.unconditional.num_samples=1",
+                                     "tester.unconditional.audio_len=2048",
+                                     f"model_dir={tmp_path}"])
+    net = tsetup.setup_network(args, device="cpu", trainable=in_training)
+    rng = np.random.default_rng(6)
+    test_set = [((rng.standard_normal(2048) * 0.1).astype(np.float32), 4096, "piece.wav")]
+    return tsetup.setup_tester(args, network=net, diff_params=tsetup.setup_diff_parameters(args),
+                               test_set=test_set, device="cpu", in_training=in_training)
+
+
+@pytest.mark.parametrize("how", ["release_programs", "drop_the_sampler", "training_demo",
+                                 "test_inpainting_kernel_and_plain"])
+def test_programs_are_freed_without_a_garbage_collection(nets, how, tmp_path, monkeypatch):
+    """A program holds the model, not its sampler, and the tester holds no
+    cycle: releasing the programs, dropping the sampler, or dropping a
+    tester after the training demo or after ``test_inpainting`` with the
+    kernel and then the plain version frees every program (and, on the
+    card, its graph pool) by reference counting alone. A program freed by
+    the collector instead could be freed inside another program's capture."""
     import gc
     import weakref
-    args = compose(overrides=["tester.T=3", "exp.audio_len=2048"])
-    s = Sampler(nets[1], tedm.EDM(args), args)
-    ref = weakref.ref(s.compile_inpainting(*_request()))
+    built = []
+    init = HeunProgram.__init__
+
+    def tracked(self, *a, **k):
+        built.append(weakref.ref(self))
+        init(self, *a, **k)
+
+    monkeypatch.setattr(HeunProgram, "__init__", tracked)
+    gc.collect()
     gc.disable()
     try:
-        if how == "release_programs":
-            s.release_programs()
+        if how in ("release_programs", "drop_the_sampler"):
+            args = compose(overrides=["tester.T=3", "exp.audio_len=2048"])
+            owner = Sampler(nets[1], tedm.EDM(args), args)
+            owner.compile_inpainting(*_request())
+            if how == "release_programs":
+                owner.release_programs()
+        elif how == "training_demo":
+            owner = _tiny_tester(tmp_path, in_training=True)
+            ema = {k: v.detach() * 0.5 for k, v in owner.network.named_parameters()}
+            assert np.isfinite(owner.sample_unconditional_ema(ema)).all()
         else:
-            del s
-        assert ref() is None
+            owner = _tiny_tester(tmp_path, in_training=False)
+            assert owner.test_inpainting(mode="kernel") == ["piece"]
+            monkeypatch.setattr(fa, "norm_adaln_gelu", fa.norm_adaln_gelu_plain)
+            assert owner.test_inpainting(mode="plain") == ["piece"]
+        assert len(built) == {"test_inpainting_kernel_and_plain": 2}.get(how, 1)
+        owner = weakref.ref(owner)
+        assert owner() is None
+        assert all(r() is None for r in built)
     finally:
         gc.enable()
 

@@ -103,3 +103,16 @@ def test_spectral_projector_and_magnitude_match_jax():
     ref = np.asarray(jdegr.stft_magnitude(cfg)(jnp.asarray(x)))
     got = tdegr.stft_magnitude(cfg)(torch.from_numpy(x))
     assert rel_err(got.numpy(), ref) < TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_hann_window_is_made_once_and_equals_the_uploaded_one(dtype):
+    """The window is kept per (length, dtype, device), so an STFT inside a
+    guided score copies nothing from the host; it equals the window the
+    numpy formula uploads, bit for bit."""
+    for n in (200, 1024):
+        w = tstft.hann_window(n, dtype=dtype)
+        assert tstft.hann_window(n, dtype=dtype, device="cpu") is w
+        old = torch.as_tensor(0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / n), dtype=dtype)
+        assert w.dtype == dtype and torch.equal(w, old)
+    assert tstft.hann_window(256) is not tstft.hann_window(256, dtype=torch.float64)

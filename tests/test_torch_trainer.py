@@ -116,6 +116,7 @@ def _rel_l2(a, b, base=None):
 #     3e-4), and each element within 10% of the largest step: Adam's
 #     m / sqrt(v) amplifies the rounding difference of a gradient entry
 #     whose terms cancel.
+@pytest.mark.parametrize("route", ["program", "eager"])
 @pytest.mark.parametrize("extra,skips", [
     ((), ()),
     (("exp.num_accumulation_rounds=2",), ()),
@@ -123,7 +124,9 @@ def _rel_l2(a, b, base=None):
     # relative guard: step 1 warms the gnorm EMA, then every step is a spike
     (("exp.skip_grad_factor=1e-3",), (2, 3)),
 ], ids=["plain", "accumulate2", "skip_grad_norm", "skip_grad_factor"])
-def test_train_steps_match_jax(tmp_path, extra, skips):
+def test_train_steps_match_jax(tmp_path, extra, skips, route):
+    """Through the step program (``train_step``) and through the eager step
+    it captures, each against the JAX trainer."""
     jtr, ttr = _pair(str(tmp_path), extra)
     n_accum = ttr.n_accum
     rng = np.random.default_rng(0)
@@ -133,7 +136,8 @@ def test_train_steps_match_jax(tmp_path, extra, skips):
         draws = _jax_draws(jtr, n_accum)
         before = _port_state(ttr)
         jm = jtr.train_step(audio, fs)
-        tm = ttr.train_step(audio, fs, draws)
+        tm = ttr._train_step(audio, fs, draws, program=route == "program")
+        assert ttr.step_programs_built == (route == "program")
         for k in ("loss", "grad_norm", "gnorm_ema"):
             np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, err_msg=k)
         assert float(tm["skipped"]) == float(jm["skipped"]) == float(step in skips)
@@ -193,6 +197,112 @@ def _assert_same_state(a, b):
             torch.testing.assert_close(sa[n], sb[n], rtol=0, atol=0, msg=f"{k} {n}")
     assert (a.it, int(a.count), int(a.applied), float(a.gnorm_ema)) == \
         (b.it, int(b.count), int(b.applied), float(b.gnorm_ema))
+
+
+def _metrics_equal(a, b):
+    if isinstance(a, dict):
+        assert set(a) == set(b)
+        return all(_metrics_equal(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_accum", [1, 2])
+def test_program_step_equals_the_eager_step_bit_for_bit(tmp_path, n_accum):
+    """``train_step`` (the step program: on the CPU the captured function
+    run eagerly over its static buffers) against the eager step on the same
+    weights, drawing from the trainers' own generators; the third step's
+    batch spikes the gradient norm past the relative guardrail, so it is
+    skipped. Every metric and every state tensor equal, bit for bit."""
+    tmp = str(tmp_path)
+    ov = TINY + [f"exp.num_accumulation_rounds={n_accum}", "exp.skip_grad_factor=3.0"]
+    prog, eager = _port(tmp, ov, sub="program"), _port(tmp, ov, sub="eager")
+    rng = np.random.default_rng(0)
+    for step in (1, 2, 3, 4):
+        audio, fs = _batch(rng)
+        audio = audio * (30.0 if step == 3 else 1.0)
+        mp = prog.train_step(audio, fs)
+        me = eager._train_step(audio, fs, None, program=False)
+        assert _metrics_equal(mp, me), step
+        assert float(mp["skipped"]) == float(step == 3)
+        _assert_same_state(prog, eager)
+    assert torch.equal(prog.gen.get_state(), eager.gen.get_state())
+    (p,) = prog._step_programs.values()
+    assert prog.step_programs_built == 1 and eager.step_programs_built == 0
+    assert p.shapes()["x"] == [n_accum, B // n_accum, L] and p.graph is None
+
+
+def test_compile_step_leaves_the_state_unchanged(tmp_path):
+    """``compile_step`` builds the program ``train_step`` then runs, and
+    leaves the parameters, both moments, the EMA, the counters, ``it`` and
+    the generator (whose draws fill the build's buffers) as they were; the
+    trainer then trains as one that never compiled. The state snapshot that
+    undoes the warm-up's update on the card writes the state back exactly."""
+    tmp = str(tmp_path)
+    tr, ref = _port(tmp, TINY, sub="compiled"), _port(tmp, TINY, sub="ref")
+    rng = np.random.default_rng(0)
+    _steps(tr, rng, 1, lambda r: None)
+    _steps(ref, np.random.default_rng(0), 1, lambda r: None)
+    before, gen, it = _port_state(tr), tr.gen.get_state(), tr.it
+    tr.release_step_programs()
+    audio, fs = _batch(rng)
+    prog = tr.compile_step(audio, fs)
+    assert prog is not None and tr.step_programs_built == 2
+    assert tr.it == it and torch.equal(tr.gen.get_state(), gen)
+    _assert_same_state(tr, ref)
+    assert all(torch.equal(before[k][n], _port_state(tr)[k][n]) for k in before for n in tr.names)
+    m = tr.train_step(audio, fs)
+    assert tr.step_programs_built == 2 and list(tr._step_programs.values()) == [prog]
+    assert _metrics_equal(m, ref.train_step(audio, fs))
+    _assert_same_state(tr, ref)
+    restore = tr._snapshot()     # undoes the build's warm-up step on the card
+    tr._step(*tr._inputs(*tr._split(*_batch(rng))), torch.tensor(0.5))
+    restore()
+    _assert_same_state(tr, ref)
+    fresh = _port(tmp, TINY, sub="fresh")
+    fresh.ema = None
+    with pytest.raises(RuntimeError, match="init_state"):
+        fresh.compile_step(audio, fs)
+
+
+def test_the_step_program_is_freed_with_its_trainer(tmp_path):
+    """The step program holds its trainer weakly and the trainer holds no
+    cycle: dropping a trainer that trained frees its program (and, on the
+    card, its graph pool) by reference counting alone."""
+    import gc
+    import weakref
+    gc.collect()
+    gc.disable()
+    try:
+        tr = _port(str(tmp_path), TINY)
+        _steps(tr, np.random.default_rng(0), 1, lambda r: None)
+        (prog,) = tr._step_programs.values()
+        refs = [weakref.ref(tr), weakref.ref(prog)]
+        del tr, prog
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
+
+
+@pytest.mark.parametrize("change", ["load_in_place", "resume", "init_state"])
+def test_a_reload_rebuilds_the_step_program(tmp_path, change):
+    """A new or reloaded state drops the program built over the old one;
+    the next step builds another."""
+    tmp = str(tmp_path)
+    tr = _port(tmp, TINY)
+    rng = np.random.default_rng(0)
+    _steps(tr, rng, 2, _numpy_draws)
+    old = next(iter(tr._step_programs.values()))
+    _steps(tr, rng, 1, _numpy_draws)
+    assert tr.step_programs_built == 1
+    if change == "load_in_place":
+        tr.load_state_dict(tr.state_dict())
+    elif change == "resume":
+        assert tr.resume_from_checkpoint(tr.save_checkpoint())
+    else:
+        tr.init_state()
+    _steps(tr, rng, 1, _numpy_draws)
+    (new,) = tr._step_programs.values()
+    assert tr.step_programs_built == 2 and new is not old
 
 
 def test_checkpoint_roundtrip_and_resume_continues_like_uninterrupted(tmp_path):
