@@ -41,6 +41,7 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
+from aid_tpu_torch.parallel import mesh as pmesh
 from aid_tpu_torch.parallel import ring_attention as ring
 
 # The widest halo (the cubic FIR's 3 frames) and the edge frame that a
@@ -65,7 +66,7 @@ def reset_counts() -> None:
 
 def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
+    pmesh.all_gather(parts, t.contiguous(), group=group)
     return parts
 
 
@@ -102,13 +103,13 @@ class _AllReduce(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
+        pmesh.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        pmesh.all_reduce(g, group=ctx.group)
         return g, None
 
 

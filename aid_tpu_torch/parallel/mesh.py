@@ -9,6 +9,14 @@ JAX package's ``fsdp_shardings`` rule (``fsdp_shard_dim``).
 Backend: NCCL when every rank has its own card; gloo when ranks outnumber
 the cards (NCCL refuses two ranks on one device) and when the caller names
 the CPU. The choice follows from the launch environment and is printed.
+
+What a CUDA graph can hold: NCCL's collectives (``captures_collectives``);
+gloo stages CUDA tensors through the host, so its collectives cannot be
+captured. Every collective of the step and the score goes through
+``all_reduce`` / ``all_gather`` here, which raise (``guard``), naming the
+backend, when a collective that cannot be captured is called while the
+current stream captures. ``communicates`` says whether a network's forward
+makes collectives at all (tp split layers, context parallelism).
 """
 from __future__ import annotations
 
@@ -41,6 +49,48 @@ def choose_backend(device=None) -> Tuple[str, str]:
         return "gloo", (f"{local} ranks share {n_cards} card(s) and NCCL refuses two "
                         "ranks on one device")
     return "nccl", f"each of {local} rank(s) on this host has its own card"
+
+
+def captures_collectives(group=None) -> bool:
+    """Whether a CUDA graph can hold the collectives of ``group`` (the
+    default group when None): NCCL's can; gloo's cannot."""
+    return dist.get_backend(group) == "nccl"
+
+
+def guard(group=None) -> None:
+    """Raise before a collective of ``group`` that the capture in progress
+    on the current CUDA stream cannot hold (a gloo collective would run on
+    the host at capture time and never at replay). A build of torch
+    without CUDA never captures."""
+    capturing = torch.backends.cuda.is_built() and torch.cuda.is_current_stream_capturing()
+    if capturing and not captures_collectives(group):
+        raise RuntimeError(
+            f"a {dist.get_backend(group)} collective was called while a CUDA graph is being "
+            "captured; only NCCL's collectives can be captured")
+
+
+def all_reduce(t: torch.Tensor, group=None, op=None) -> None:
+    """``dist.all_reduce`` (a sum unless ``op``) behind ``guard``."""
+    guard(group)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op, group=group)
+
+
+def all_gather(parts: List[torch.Tensor], t: torch.Tensor, group=None) -> None:
+    """``dist.all_gather`` behind ``guard``."""
+    guard(group)
+    dist.all_gather(parts, t, group=group)
+
+
+def communicates(model) -> bool:
+    """Whether a forward of ``model`` makes collectives now: a layer split
+    over tp ranks (``parallel.tp.place_params`` gave it a ``tp_group``), or
+    a context-parallel flag (``network.context_parallel``,
+    ``attention_dict.context_parallel``) on any module while a cp mesh is
+    installed (without one the flag changes nothing)."""
+    from aid_tpu_torch.parallel import ring_attention as ring
+    cp = ring.get_cp_mesh() is not None
+    return any(getattr(m, "tp_group", None) is not None
+               or (cp and getattr(m, "context_parallel", False)) for m in model.modules())
 
 
 def _free_port() -> int:

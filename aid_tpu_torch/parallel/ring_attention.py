@@ -26,6 +26,8 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
+from aid_tpu_torch.parallel import mesh as pmesh
+
 CP_AXIS = "cp"
 
 
@@ -38,7 +40,7 @@ def _dense(q, k, v, bias, scale):
 
 def _gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
+    pmesh.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
 
 
@@ -53,6 +55,7 @@ def _hop(tensors: List[torch.Tensor], group, to: int, frm: int):
     sharing one card use, stages the blocks through host memory, as gloo
     itself does for its collectives on CUDA tensors."""
     global _STAGED_SAID
+    pmesh.guard(group)
     dev = tensors[0].device
     staged = dev.type == "cuda" and dist.get_backend(group) == "gloo"
     if staged:

@@ -24,6 +24,8 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
+from aid_tpu_torch.parallel import mesh as pmesh
+
 MODEL_AXIS = "tp"
 
 
@@ -79,7 +81,7 @@ class _CopyIn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        pmesh.all_reduce(g, group=ctx.group)
         return g, None
 
 
@@ -91,7 +93,7 @@ class _GatherOut(torch.autograd.Function):
     def forward(ctx, y, group):
         ctx.group, ctx.width = group, y.shape[-1]
         parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, y.contiguous(), group=group)
+        pmesh.all_gather(parts, y.contiguous(), group=group)
         return torch.cat(parts, dim=-1)
 
     @staticmethod

@@ -11,9 +11,11 @@ same steps eagerly on the CPU (``heun_sample``'s result bit for bit). A
 new value of a traced argument of the JAX program (a mask, a clip value,
 an observation) reuses the program; a new BWE filter builds another.
 ``compile_inpainting`` builds the inpainting program without running it.
-Calls under a process group (whose collectives a graph cannot hold) build
-the same task's operators over the request's tensors and run
-``heun_sample`` eagerly.
+A trajectory whose network makes collectives (split over tp ranks or
+context-parallel: ``parallel.mesh.communicates``) builds the same task's
+operators over the request's tensors and runs ``heun_sample`` eagerly; one
+that makes none runs its program also under a process group (a rank of a
+dp mesh runs its rows through its own programs).
 
 Noise is drawn from ``generator`` unless the standard-normal ``prior``
 [B, L] and ``churn`` [T, B, L] are injected, in ``heun_sample``'s order
@@ -31,10 +33,10 @@ import itertools
 from typing import Optional, Sequence
 
 import torch
-import torch.distributed as dist
 
 from aid_tpu_torch.diffusion import edm
 from aid_tpu_torch.ops import fused_adaln as fa
+from aid_tpu_torch.parallel import mesh as pmesh
 from aid_tpu_torch.sampling import degradations as degr
 from aid_tpu_torch.sampling import program
 from aid_tpu_torch.sampling.heun import SamplerConfig, draw_noise, heun_sample, make_score_fn
@@ -127,9 +129,11 @@ class Sampler:
         return tensors_key(itertools.chain(self.model.parameters(), self.model.buffers()))
 
     def programs_enabled(self) -> bool:
-        """Programs serve every call but those under a process group (gloo's
-        collectives cannot be captured)."""
-        return not (dist.is_available() and dist.is_initialized())
+        """Programs serve every trajectory that makes no collective, under
+        any process group; a network split over tp ranks or context-parallel
+        runs eagerly, by rule (its collectives would have to sit inside the
+        graphs, which NCCL alone can hold, and only across cards)."""
+        return not pmesh.communicates(self.model)
 
     def release_programs(self) -> None:
         """Drop every cached program and the graph pool they share."""

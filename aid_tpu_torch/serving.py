@@ -24,8 +24,11 @@ of ``aid_tpu/serving.py``).
     splits each round's windows over the ranks, a ("dp", "tp") mesh also
     splits every conv and dense layer's output channels
     (``parallel.tp``), a ("dp", "cp") mesh every activation's time axis
-    (full-score context parallelism, ``parallel.cp``). Under a mesh the
-    sampler runs eagerly: gloo's collectives cannot be captured in a graph.
+    (full-score context parallelism, ``parallel.cp``). Over a dp mesh each
+    rank runs its rows through its own programs (a trajectory makes no
+    collective; the blocks are all-gathered after it), under any backend;
+    over tp or cp the collectives sit inside every score and the sampler
+    runs eagerly (``Sampler.programs_enabled``).
 """
 from __future__ import annotations
 
@@ -159,7 +162,8 @@ class InpaintingService:
     def _run_batch(self, xb: np.ndarray, mb: np.ndarray, seed: int) -> np.ndarray:
         """One guided-Heun call on an [n, L] window batch, its noise drawn
         from a generator seeded with ``seed``: the sampler's program for n
-        rows; over a mesh, this rank's dp block of rows (eagerly), the
+        rows; over a mesh, this rank's dp block of k = ceil(n / n_dp) rows
+        (its program for k rows over a dp mesh, eagerly over tp or cp), the
         blocks then all-gathered."""
         y = torch.from_numpy((xb * mb).astype(np.float32)).to(self.device)
         m = torch.from_numpy(mb.astype(np.float32)).to(self.device)
@@ -196,55 +200,65 @@ class InpaintingService:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def _n_dp(self) -> int:
+        return 1 if self.mesh is None else pmesh.dim_size(self.mesh, pmesh.DATA_AXIS)
+
     def precompile(self, seed: int = 0) -> None:
         """Build the guided-Heun programs without running them (on the card:
         warm-up and CUDA graph capture), as the JAX package compiles its
         program here: the one for [max_batch, audio_len] first, then one
         for each smaller row count, since a round runs only the rows it has
         (JAX pads every round to max_batch). Draws nothing from any
-        request's noise. After ``shard`` the path runs eagerly: every rank
-        calls it and warms its dp block's rows with one guided score."""
-        if self.mesh is not None:
-            rows = self.max_batch // pmesh.dim_size(self.mesh, pmesh.DATA_AXIS)
+        request's noise. After ``shard`` every rank calls it: over a dp
+        mesh it builds this rank's programs, for max_batch / n_dp rows down
+        to 1; over tp or cp, whose trajectories run eagerly, it warms this
+        rank's rows with one guided score."""
+        rows = self.max_batch // self._n_dp()
+        if not self.sampler.programs_enabled():
             self._guided_score_once(rows, seed)
             return
-        for n in range(self.max_batch, 0, -1):
+        for n in range(rows, 0, -1):
             self._compiled_for_batch(n)
 
     def _compiled_for_batch(self, n: int):
-        """The sampler's inpainting program for [n, audio_len] rounds
-        (built on first use)."""
+        """The sampler's inpainting program for [n, audio_len] rounds (a
+        rank's n rows over a dp mesh), built on first use."""
         L = int(self.args.exp.audio_len)
         mask = torch.ones(n, L, device=self.device)
         mask[:, L // 4:L // 2] = 0.0
         return self.sampler.compile_inpainting(torch.zeros(n, L, device=self.device), mask)
 
     def _footprint(self, n: int) -> int:
-        """Device bytes of guided sampling at [n, audio_len]: the network's
-        weights plus the program's ``memory_bytes()`` (its static buffers
-        and the graph pool its capture took). A probe wider than
-        ``max_batch`` is dropped with the graph pool it grew (``precompile``
-        builds what serves)."""
+        """Device bytes of guided sampling at [n, audio_len] on one device:
+        the network's weights plus the program's ``memory_bytes()`` (its
+        static buffers and the graph pool its capture took). A probe wider
+        than a device's rows of ``max_batch`` is dropped with the graph
+        pool it grew (``precompile`` builds what serves)."""
         weights = sum(p.numel() * p.element_size() for p in self.network.parameters())
         nbytes = weights + self._compiled_for_batch(n).memory_bytes()
-        if n > self.max_batch:
+        if n > self.max_batch // self._n_dp():
             self.sampler.release_programs()
         return nbytes
 
     def autotune_max_batch(self, limit_bytes: Optional[int] = None,
                            margin: float = 0.85, cap: int = 16) -> int:
         """Fit ``max_batch`` to device memory from the footprints of the
-        programs at batch 1 and 2: the per-row bytes are their difference,
-        the rest is fixed. Returns the largest batch whose
-        footprint stays under ``margin * limit_bytes`` (at most ``cap``) and
-        caps ``max_batch`` with it; it never raises a configured
-        ``max_batch`` (fitting memory is necessary, the throughput optimum
-        may be lower). ``limit_bytes`` defaults to the card's memory.
-        Raises when not even one row fits, and after ``shard`` (it measures
-        one device's footprint)."""
-        if self.mesh is not None:
-            raise RuntimeError("autotune_max_batch probes one device's footprint; call it "
-                               "before shard() (the dp row count then scales with the mesh)")
+        programs at 1 and 2 rows a device: the per-row bytes are their
+        difference, the rest is fixed. The rows a device can take are the
+        most whose footprint stays under ``margin * limit_bytes`` (at most
+        ``cap``); after ``shard`` over a dp mesh every rank measures its
+        own and they agree on the smallest (an all-reduce), since the ranks
+        serve each round in lockstep. Returns the batch that fits (the
+        device's rows times the dp size) and caps ``max_batch`` with it; it
+        never raises a configured ``max_batch`` (fitting memory is
+        necessary, the throughput optimum may be lower). ``limit_bytes``
+        defaults to the card's memory. Raises when not even one row fits
+        on some rank, and over a tp or cp mesh (its trajectories run
+        eagerly: there is no program to measure)."""
+        if self.mesh is not None and not self.sampler.programs_enabled():
+            raise RuntimeError("autotune_max_batch measures the sampler's programs; over a "
+                               "tp or cp mesh the trajectory runs eagerly: call it before "
+                               "shard()")
         if limit_bytes is None:
             if self.device.type != "cuda":
                 raise ValueError(f"no device memory limit on {self.device}; pass limit_bytes")
@@ -254,12 +268,19 @@ class InpaintingService:
         fixed = max(f1 - per_row, 0)
         budget = margin * limit_bytes
         fit = int((budget - fixed) // per_row)
+        if self.mesh is not None:   # before the raise: every rank raises, or none
+            least = torch.tensor(float(fit), device=self.device)
+            pmesh.all_reduce(least, op=dist.ReduceOp.MIN)
+            fit = int(least.item())
         if fit < 1:
             raise RuntimeError(
                 f"guided sampling does not fit: fixed {fixed / 2 ** 30:.2f} GiB"
-                f" + {per_row / 2 ** 30:.2f} GiB/row vs budget {budget / 2 ** 30:.2f} GiB")
-        self.max_batch = max(1, min(self.max_batch, min(fit, cap)))
-        return min(fit, cap)
+                f" + {per_row / 2 ** 30:.2f} GiB/row vs budget {budget / 2 ** 30:.2f} GiB"
+                f"{' (on the tightest rank)' if self.mesh is not None else ''}")
+        n_dp = self._n_dp()
+        rows = min(fit, cap) * n_dp
+        self.max_batch = max(n_dp, min(self.max_batch, rows))
+        return rows
 
     def inpaint(self, audio: np.ndarray, mask: np.ndarray, fs: int,
                 seed: int = 0) -> np.ndarray:

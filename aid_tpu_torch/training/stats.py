@@ -43,9 +43,9 @@ def sigma_binned_moments(loss_per_sample: torch.Tensor, sigma: torch.Tensor,
 def sum_over_ranks(tensors: List[torch.Tensor], group=None) -> List[torch.Tensor]:
     """Each tensor summed over the ranks of ``group``, in one all-reduce:
     per-rank moment rows become the global batch's."""
-    import torch.distributed as dist
+    from aid_tpu_torch.parallel import mesh as pmesh
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, group=group)
+    pmesh.all_reduce(flat, group=group)
     return [f.reshape(t.shape) for f, t in
             zip(flat.split([t.numel() for t in tensors]), tensors)]
 

@@ -28,15 +28,17 @@ forward and backward passes, clipping, Adam, the guardrails, the EMA and
 the metrics). The host does what varies from step to step first, in the
 eager order: each micro-batch goes to the device, is resampled, and draws
 its sign, sigma and noise from ``self.gen``; the EMA's rate comes from the
-iteration count. With no process group the step runs as a
-``training.program.StepProgram``, one per (input shapes and dtypes, fused
-function, TF32 and remat settings) over the current state tensors, the
-counterpart of the JAX step's ``jax.jit`` with donation: on CUDA a CUDA
-graph replayed every step, on the CPU the same function eagerly over the
-same buffers (the eager step bit for bit). ``compile_step`` builds it
-without training. A new state tensor, a resume or an in-place load
-(address or version of a parameter, moment, EMA, counter or buffer) drops
-the program.
+iteration count. The step runs as a ``training.program.StepProgram``,
+one per (input shapes and dtypes, fused function, TF32 and remat settings)
+over the current state tensors, the counterpart of the JAX step's
+``jax.jit`` with donation: on CUDA CUDA graphs replayed every step, on the
+CPU the same functions eagerly over the same buffers (the eager step bit
+for bit). ``compile_step`` builds it without training. A new state
+tensor, a resume or an in-place load (address or version of a parameter,
+moment, EMA, counter or buffer) drops the program. Under a process group
+``programs_enabled`` says which steps a capture can hold: a dp step as two
+graphs around its gradient all-reduce (``_dp_head``, ``_dp_reduce``,
+``_dp_tail``), an FSDP2 step under NCCL as one; the rest run eagerly.
 
 Under a process group (``parallel.mesh.init_distributed``) the global batch
 ``exp.batch`` is split over a ``"dp"`` mesh of ranks, each of which takes its
@@ -76,7 +78,7 @@ from aid_tpu_torch.parallel import mesh as pmesh
 from aid_tpu_torch.training import stats as tstats
 from aid_tpu_torch.training import utils as tutils
 from aid_tpu_torch.training.program import StepProgram
-from aid_tpu_torch.utils.graphs import capture_flags, specs, tensors_key
+from aid_tpu_torch.utils.graphs import capture_flags, capture_stream, specs, tensors_key
 from aid_tpu_torch.utils import checkpoint as ckpt
 from aid_tpu_torch.utils import logging_utils as logu
 
@@ -197,8 +199,15 @@ class Trainer:
             elif self.n_dp > 1:
                 from torch.nn.parallel import DistributedDataParallel as DDP
                 cuda = self.device.type == "cuda"
-                self.model = DDP(self.net, process_group=self.mesh.get_group(),
-                                 device_ids=[torch.cuda.current_device()] if cuda else None)
+                # DDP keeps every parameter's gradient accumulator, which
+                # runs on the stream current when it was made: made on the
+                # capture stream, the dp step program's backward can be captured
+                side = capture_stream(self.device) if cuda else None
+                with torch.cuda.stream(side) if cuda else contextlib.nullcontext():
+                    self.model = DDP(self.net, process_group=self.mesh.get_group(),
+                                     device_ids=[torch.cuda.current_device()] if cuda else None)
+                if cuda:
+                    torch.cuda.current_stream(self.device).wait_stream(side)
         self.params = [self._local(p) for p in self.net.parameters()]
         self.sharded = torch.tensor([d is not None for d in self.shard_dims], device=self.device)
 
@@ -368,8 +377,11 @@ class Trainer:
             ds.append({**d, "sigma": sigma, "noise": noise})
         return torch.stack(xs), {k: torch.stack([d[k] for d in ds]) for k in ds[0]}
 
-    def _loss_and_grads(self, x: torch.Tensor, draws: Dict[str, torch.Tensor]):
-        """Loss and gradients on the device inputs of ``_inputs``."""
+    def _backward(self, x: torch.Tensor, draws: Dict[str, torch.Tensor], model):
+        """Every micro-batch's forward and backward through ``model`` (the
+        bare module or its wrapper); the gradients add up in the parameters'
+        ``.grad``. Returns (each micro-batch's loss, the per-sample losses,
+        the sigmas)."""
         self.net.zero_grad(set_to_none=True)
         losses, per_sample, sigmas = [], [], []
         n_micro = x.shape[0]
@@ -377,10 +389,10 @@ class Trainer:
             xi = tutils.augment(x[i], self.aug_cfg, sign=draws.get("sign", [None] * n_micro)[i],
                                 gain_db=draws.get("gain_db", [None] * n_micro)[i])
             # DDP averages the gradients over the ranks in the last backward
-            sync = (contextlib.nullcontext() if i == n_micro - 1 or self.model is self.net
-                    else self.model.no_sync())
+            sync = (contextlib.nullcontext() if i == n_micro - 1 or model is self.net
+                    else model.no_sync())
             with sync:
-                err2, sigma = edm.loss_fn(self.p, self.model, xi, None, self.error_filter,
+                err2, sigma = edm.loss_fn(self.p, model, xi, None, self.error_filter,
                                           sigma=draws["sigma"][i], noise=draws["noise"][i])
                 ps = err2.reshape(err2.shape[0], -1).mean(-1)
                 loss = ps.mean()
@@ -388,11 +400,16 @@ class Trainer:
             losses.append(loss.detach())
             per_sample.append(ps.detach())
             sigmas.append(sigma.detach())
+        return losses, torch.cat(per_sample), torch.cat(sigmas)
+
+    def _loss_and_grads(self, x: torch.Tensor, draws: Dict[str, torch.Tensor]):
+        """Loss and gradients on the device inputs of ``_inputs``."""
+        losses, per_sample, sigmas = self._backward(x, draws, self.model)
         if self.fsdp and self._whole:
             # FSDP averages its shards' gradients; the whole ones are averaged here
             whole = [p.grad for p in self._whole]
             flat = torch.cat([g.reshape(-1) for g in whole])
-            dist.all_reduce(flat, group=self.mesh.get_group())
+            pmesh.all_reduce(flat, group=self.mesh.get_group())
             flat /= self.n_dp
             torch._foreach_copy_(whole, [f.view_as(g) for f, g in
                                          zip(flat.split([g.numel() for g in whole]), whole)])
@@ -401,8 +418,7 @@ class Trainer:
         n = len(losses)
         if n > 1:
             torch._foreach_div_(grads, float(n))
-        return (sum(losses[1:], losses[0]) / n, torch.cat(per_sample), torch.cat(sigmas),
-                grads)
+        return sum(losses[1:], losses[0]) / n, per_sample, sigmas, grads
 
     def loss_and_grads(self, audio: np.ndarray, fs: np.ndarray,
                        draws: Optional[List[Dict]] = None):
@@ -423,17 +439,32 @@ class Trainer:
             rate = min(rate, (np.float32(1.0) + tb) / (np.float32(10.0) + tb))
         return np.float32(1.0) - rate
 
+    def _stats(self, loss, per_sample, sigma) -> List[torch.Tensor]:
+        """[loss / n_dp, the sigma-binned loss moments, the loss moments] of
+        this rank's rows: summed over the ranks, the global batch's."""
+        return [loss / self.n_dp, tstats.sigma_binned_moments(per_sample, sigma, self._edges),
+                tstats.moments(per_sample)]
+
     @torch.no_grad()
     def apply_grads(self, loss, per_sample, sigma, grads, ema_keep: torch.Tensor) -> Dict:
         """Clip, Adam, LR ramp, guardrails and EMA (``ema_keep``: the 0-dim
         1 - rate); returns the step's metrics (fresh device tensors: nothing
         here waits for the device or reads a number on the host)."""
+        stats = self._stats(loss, per_sample, sigma)
+        if self.mesh is not None:
+            # the global batch's loss and statistics
+            stats = tstats.sum_over_ranks(stats, self.mesh.get_group())
+        return self._update(grads, ema_keep, *stats)
+
+    @torch.no_grad()
+    def _update(self, grads, ema_keep: torch.Tensor, loss, bins, moments) -> Dict:
+        """``apply_grads`` on the loss statistics summed over the ranks."""
         norms = torch._foreach_norm(grads)
         if self.fsdp:
             # shards: all-reduce the squares; whole tensors counted once
             sq = torch.stack(norms) ** 2
             sq = torch.where(self.sharded | self.lead, sq, torch.zeros_like(sq))
-            dist.all_reduce(sq, group=self.mesh.get_group())
+            pmesh.all_reduce(sq, group=self.mesh.get_group())
             norms = list(sq.sqrt().unbind())
         gnorm = torch.linalg.vector_norm(torch.stack(norms))
         g = grads
@@ -500,12 +531,6 @@ class Trainer:
         for n, v in zip(self.names, norms):
             k = n.split(".")[0]
             sq[k] = sq[k] + v * v
-        bins = tstats.sigma_binned_moments(per_sample, sigma, self._edges)
-        moments = tstats.moments(per_sample)
-        if self.mesh is not None:
-            # the global batch's loss and statistics
-            loss, bins, moments = tstats.sum_over_ranks(
-                [loss / self.n_dp, bins, moments], self.mesh.get_group())
         return {"loss": loss, "grad_norm": gnorm, "gnorm_ema": self.gnorm_ema.clone(),
                 "skipped": skipped, "sigma_bins": bins, "loss_moments": moments,
                 "grad_norms_by_module": {k: v.sqrt() for k, v in sq.items()}}
@@ -515,6 +540,37 @@ class Trainer:
         """One iteration on device tensors: what a step program runs."""
         return self.apply_grads(*self._loss_and_grads(x, draws), ema_keep)
 
+    # A dp step (DDP's) as two functions around its one collective: a step
+    # program captures each as a graph and all-reduces between them.
+
+    def _dp_head(self, x: torch.Tensor, draws: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Every micro-batch's forward and backward on the bare module (no
+        collective, as under DDP's ``no_sync``); returns one flat f32
+        buffer of this rank's gradients scaled by 1 / n_dp (as DDP scales
+        them into its buckets) and its loss statistics (``_stats``): summed
+        over the ranks, the DDP step's averaged gradients and the global
+        batch's statistics."""
+        losses, per_sample, sigmas = self._backward(x, draws, self.net)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.net.parameters()]
+        stats = self._stats(sum(losses[1:], losses[0]) / len(losses), per_sample, sigmas)
+        return torch.cat([g.reshape(-1) * (1.0 / self.n_dp) for g in grads]
+                         + [t.reshape(-1) for t in stats])
+
+    def _dp_reduce(self, flat: torch.Tensor) -> None:
+        """The dp step's all-reduce of ``_dp_head``'s buffer, in place."""
+        pmesh.all_reduce(flat, group=self.mesh.get_group())
+
+    def _dp_tail(self, flat: torch.Tensor, ema_keep: torch.Tensor) -> Dict:
+        """``apply_grads`` on views of the all-reduced buffer, the
+        gradients divided by the micro-batch count."""
+        nb = self._edges.numel() - 1
+        *gs, loss, bins, moments = flat.split([q.numel() for q in self.params] + [1, 3 * nb, 3])
+        grads = [g.view_as(q) for g, q in zip(gs, self.params)]
+        if self.n_accum > 1:
+            torch._foreach_div_(grads, float(self.n_accum))
+        return self._update(grads, ema_keep, loss.reshape(()), bins.view(nb, 3), moments)
+
     def get_batch(self):
         """Next host batch: (audio [n_accum B, T] f32, fs [n_accum B])."""
         audio, fs = next(self.dset)
@@ -523,9 +579,17 @@ class Trainer:
     # ------------------------------------------------------------ programs
 
     def programs_enabled(self) -> bool:
-        """Steps run as programs but under a process group (DDP, FSDP2, tp,
-        cp: their collectives stay eager)."""
-        return self.mesh is None and not (dist.is_available() and dist.is_initialized())
+        """Whether steps run as programs: the JAX package compiles its step
+        under any mesh; here as far as a capture can hold the step's
+        collectives. With no process group, one graph; dp without FSDP (a
+        DDP step), two graphs around its all-reduce, which runs eagerly
+        between them, under any backend; FSDP2, one graph holding its
+        all-gathers and reduce-scatters where the group's collectives can
+        be captured (NCCL), eager over gloo; a network whose forward
+        communicates (tp, cp), eager."""
+        if pmesh.communicates(self.net):
+            return False
+        return not self.fsdp or pmesh.captures_collectives(self.mesh.get_group())
 
     def _state(self) -> List[torch.Tensor]:
         return [*self.params, *self.mu, *self.nu, *self.ema, self.count, self.gnorm_ema,
@@ -572,11 +636,15 @@ class Trainer:
             # the program and its graph pool without a garbage collection
             trainer = weakref.ref(self)
 
-            def step(x, draws, ema_keep):
-                return trainer()._step(x, draws, ema_keep)
+            def call(name):
+                return lambda *a: getattr(trainer(), name)(*a)
 
+            if self.mesh is not None and not self.fsdp:   # dp: split at the all-reduce
+                step, hook = (call("_dp_head"), call("_dp_tail")), call("_dp_reduce")
+            else:
+                step, hook = call("_step"), None
             prog = self._step_programs[key] = StepProgram(step, buffers, self.device,
-                                                          restore=restore)
+                                                          restore=restore, hook=hook)
             self.step_programs_built += 1
         self._state_seen = self._state_key()
         return prog
@@ -584,8 +652,10 @@ class Trainer:
     def compile_step(self, audio, fs) -> Optional[StepProgram]:
         """Build the step program that ``train_step`` runs for this host
         batch's shapes (capture it, on CUDA), without training: the state,
-        ``it`` and the random stream come out as they went in. Returns it
-        (None under a process group, whose steps run eagerly)."""
+        ``it`` and the random stream come out as they went in. Under a
+        process group every rank calls it at the same point: a capture's
+        collectives pair up across ranks. Returns it (None where steps run
+        eagerly, ``programs_enabled``)."""
         if self.ema is None:
             raise RuntimeError("compile_step needs the trainer's state: call init_state() or "
                                "resume first")
@@ -609,7 +679,8 @@ class Trainer:
     def train_step(self, audio, fs, draws: Optional[List[Dict]] = None) -> Dict:
         """One iteration on a host batch of n_accum x B rows (this rank's
         rows under a process group), split into n_accum micro-batches in
-        order: through the step program, or eagerly under a process group."""
+        order: through the step program, or eagerly where programs are off
+        (``programs_enabled``)."""
         return self._train_step(audio, fs, draws, self.programs_enabled())
 
     def _train_step(self, audio, fs, draws, program: bool) -> Dict:

@@ -76,24 +76,36 @@ Phases (any failure exits non-zero before the last line is printed):
           reaches step 4; step time, peak memory and launches per step (the
           steps replay the step program each main builds at its first step);
   7. multi-device (the port's torch.distributed path), full flagship width;
-     while the ranks of 7b-7g run, this process runs 10a (light on device
-     memory while the ranks' training steps peak), 7a, 7c's reference and
-     8a-8b (every rank path runs eagerly: gloo's collectives cannot be
-     captured):
+     while the ranks run 7c-7g (the last rank also 7c's one-rank
+     reference), this process runs 7b's one-rank reference, 7a and 8a-8b;
+     the ranks' training steps (7b), whose
+     programs' pools take most of the card, run after that, beside 10a
+     (light on device memory); the card's least free memory over the phase
+     is printed:
        a. ``aid_tpu_torch.train.main`` with exp.mesh.fsdp over NCCL, one rank
-          (the card count), 2 steps, TF32 as the training default: launches,
-          step time, peak memory, the checkpoint in the one-device layout;
+          (the card count), 2 steps, TF32 as the training default, replayed
+          from the captured FSDP step (``compile_step`` before the first:
+          state, ``it`` and random stream unchanged); after step 2 the
+          replayed step against the eager step (loss, the update's distance
+          beside two eager steps', walls); launches, ``memory_bytes()``,
+          peak memory, the checkpoint in the one-device layout;
        b. two ranks sharing the card over gloo (this script again, with
           ``--rank R DIR``), each holding the kernel against its plain
-          version: 2 DDP steps and 2 FSDP steps at global batch 4, f32, TF32
-          off, against the one-rank trainer's steps on the same batch and
-          draws (loss, pre-clip norm, parameters); step time and peak memory
+          version: 2 DDP steps replayed from the dp step program (two graphs
+          around the gradient all-reduce, which runs eagerly between them),
+          its update within the spread of two eager DDP steps, and 2 FSDP
+          steps (eager: a capture holds NCCL's collectives only), at global
+          batch 4, f32, TF32 off, against the one-rank trainer's steps on
+          the same batch and draws (loss, pre-clip norm, parameters); step
+          time against the eager step, ``memory_bytes()`` and peak memory
           per rank;
        c. ``InpaintingService.shard()`` over dp=2 answers phase 5's request
-          (b) (2 rows a round, one per rank) at tester.T=8 (cut from 35 for
-          the time budget): within phase 3's bf16 tolerance of the one-rank
-          service's answer at the same settings, observed samples
-          bit-exact, RTF;
+          (b) (2 rows a round, one per rank, each through its rank's
+          program) at tester.T=8 (cut from 35 for the time budget): within
+          phase 3's bf16 tolerance of the one-rank service's answer at the
+          same settings, observed samples bit-exact, equal to the same
+          request answered eagerly on each rank (max difference 0), RTF
+          through the programs and eagerly;
        d. one f32 guided score with the conv and dense layers split over
           tp=2, and (e) one with attention_dict.context_parallel over a cp=2
           mesh, each against the replicated score: errors and wall times;
@@ -105,7 +117,9 @@ Phases (any failure exits non-zero before the last line is printed):
           at tester.T=4, Schurn=0 (bf16): within phase 3's bf16 tolerance
           of the one-rank service at the same settings, observed samples
           bit-exact, RTF;
-       every rank's launches go into the kernels line;
+       d-g run eagerly (their collectives sit inside every score; a graph
+       holds only NCCL's, which needs a card a rank) and say so; every
+       rank's launches go into the kernels line;
   8. evaluation (the third main path; a-b beside phase 7's ranks, so their
      walls are taken on a shared card) at full flagship width, bf16, on the
      same corpus with a test-split row at 44.1 kHz (resampled to 22.05 kHz
@@ -1180,16 +1194,7 @@ def phase_train_program(torch, fa, np, tr, batches, draws, per_fwd, card):
     (a0, f0), d0 = batches[0], draws[0]
     (a1, f1), d1 = batches[1], draws[1]
     tr.init_state()
-    state = [t.detach().clone() for t in tr._state()]
-    rng, it = tr.gen.get_state(), tr.it
-    torch.cuda.synchronize()
-    t0 = time.time()
-    prog = tr.compile_step(a0, f0)
-    torch.cuda.synchronize()
-    compile_s = time.time() - t0
-    unchanged = (all(torch.equal(a, b) for a, b in zip(tr._state(), state)) and tr.it == it
-                 and torch.equal(tr.gen.get_state(), rng))
-    del state
+    prog, compile_s, unchanged = compile_checked(torch, tr, a0, f0)
     p0 = [p.detach().clone() for p in tr.params]
     torch.cuda.synchronize()
     fa.reset_launch_count()
@@ -1198,13 +1203,54 @@ def phase_train_program(torch, fa, np, tr, batches, draws, per_fwd, card):
              "launches": fa.launch_count(),
              "params_unchanged": all(torch.equal(a, b) for a, b in zip(tr.params, p0))}
     del p0
+    cmp, within = replay_vs_eager(torch, fa, tr, (a1, f1), d1)
+    rec = {"check": "train_step_program", "compile_step_s": compile_s,
+           "compile_step_leaves_state": unchanged, "program": prog.report(), **cmp,
+           "step_programs_built": tr.step_programs_built, "card": card}
+    log(json.dumps(rec))
+    ok = (unchanged and len(prog.graphs) == 1 and within
+          and rec["launches"]["program"] == [prog.launches] == [2 * per_fwd]
+          and rec["launches"]["eager"] == [2 * per_fwd] * 2)
+    if not ok:
+        fail(f"the captured training step: {rec}")
+    return {"compile_step_s": compile_s, "memory_bytes": prog.memory_bytes(),
+            "capture_s": prog.capture_s, "eager_step_s": rec["wall_s"]["eager"],
+            "replayed_step_s": rec["wall_s"]["program"],
+            "update_rel_l2_vs_eager": rec["update_rel_l2_vs_eager"]}, step1
+
+
+def compile_checked(torch, tr, audio, fs):
+    """``tr.compile_step`` on a host batch: (the program, its seconds,
+    whether the state, ``it`` and the random stream came out as they went
+    in)."""
+    state = [t.detach().clone() for t in tr._state()]
+    rng, it = tr.gen.get_state(), tr.it
+    torch.cuda.synchronize()
+    t0 = time.time()
+    prog = tr.compile_step(audio, fs)
+    torch.cuda.synchronize()
+    compile_s = time.time() - t0
+    unchanged = (all(torch.equal(a, b) for a, b in zip(tr._state(), state)) and tr.it == it
+                 and torch.equal(tr.gen.get_state(), rng))
+    return prog, compile_s, unchanged
+
+
+def replay_vs_eager(torch, fa, tr, batch, draws):
+    """From the trainer's state, the eager step, the replayed step program
+    and the eager step again on one host batch and its draws, the state
+    and ``it`` put back after each: the loss, the update's relative L2
+    distance from the first eager step's (the second eager step's is the
+    eager spread), walls and launches. Returns (that record, whether the
+    program's loss is the eager loss within 1e-5 and its update within
+    twice the spread, or 1e-5)."""
+    (a, f), d = batch, draws
     p1, it = [p.detach().clone() for p in tr.params], tr.it
     res = {}
     for route in ("eager", "program", "eager"):
         restore = tr._snapshot()
         torch.cuda.synchronize()
         n0, t0 = fa.launch_count(), time.time()
-        m = tr._train_step(a1, f1, d1, program=route == "program")
+        m = tr._train_step(a, f, d, program=route == "program")
         loss = float(m["loss"])
         torch.cuda.synchronize()
         res.setdefault(route, []).append({
@@ -1219,30 +1265,16 @@ def phase_train_program(torch, fa, np, tr, batches, draws, per_fwd, card):
         return (sum(((a - b).double() ** 2).sum().item() for a, b in zip(ps, ref))
                 / den) ** 0.5 if den else float("inf")
 
-    rec = {"check": "train_step_program", "compile_step_s": compile_s,
-           "compile_step_leaves_state": unchanged, "program": prog.report(),
-           "loss": {k: [r["loss"] for r in v] for k, v in res.items()},
+    rec = {"loss": {k: [r["loss"] for r in v] for k, v in res.items()},
            "update_rel_l2_vs_eager": {k: [dist(r["params"]) for r in v] for k, v in res.items()},
            "wall_s": {k: [r["wall_s"] for r in v] for k, v in res.items()},
-           "launches": {k: [r["launches"] for r in v] for k, v in res.items()},
-           "step_programs_built": tr.step_programs_built, "card": card}
-    for v in res.values():
-        for r in v:
-            del r["params"]
-    log(json.dumps(rec))
+           "launches": {k: [r["launches"] for r in v] for k, v in res.items()}}
     spread = rec["update_rel_l2_vs_eager"]["eager"][1]
     loss_e = rec["loss"]["eager"]
-    ok = (unchanged and prog.graph is not None and den > 0
-          and all(abs(x - loss_e[0]) <= 1e-5 * abs(loss_e[0]) for x in rec["loss"]["program"])
-          and all(d <= max(2 * spread, 1e-5) for d in rec["update_rel_l2_vs_eager"]["program"])
-          and rec["launches"]["program"] == [prog.launches] == [2 * per_fwd]
-          and rec["launches"]["eager"] == [2 * per_fwd] * 2)
-    if not ok:
-        fail(f"the captured training step: {rec}")
-    return {"compile_step_s": compile_s, "memory_bytes": prog.memory_bytes(),
-            "capture_s": prog.capture_s, "eager_step_s": rec["wall_s"]["eager"],
-            "replayed_step_s": rec["wall_s"]["program"],
-            "update_rel_l2_vs_eager": rec["update_rel_l2_vs_eager"]}, step1
+    within = (den > 0
+              and all(abs(x - loss_e[0]) <= 1e-5 * abs(loss_e[0]) for x in rec["loss"]["program"])
+              and all(d <= max(2 * spread, 1e-5) for d in rec["update_rel_l2_vs_eager"]["program"]))
+    return rec, within
 
 
 def phase_train_entry(torch, fa, np, corpus, work, card):
@@ -1404,33 +1436,49 @@ def rel(a, b):
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
-def phase_parallel_entry(torch, fa, corpus, work, card):
+def phase_parallel_entry(torch, fa, corpus, work, card, cmp_batch, cmp_draws):
     """7a: aid_tpu_torch.train.main with exp.mesh.fsdp over NCCL, one rank
-    per card, 2 steps; its launches are counted."""
+    per card, 2 steps through the captured FSDP step (``compile_step``
+    before the first); after step 2, the replayed step against the eager
+    step on ``cmp_batch`` and ``cmp_draws`` (``replay_vs_eager``). Its
+    launches are counted."""
     import torch.distributed as dist
     from aid_tpu_torch import train as ttrain
     from aid_tpu_torch.training.trainer import Trainer
     from aid_tpu_torch.utils import checkpoint as ckpt
     world = 1
     log(f"== phase 7a: aid_tpu_torch.train.main, exp.mesh.fsdp=true, over NCCL at world size "
-        f"{world} ({torch.cuda.device_count()} card(s)), 2 steps")
+        f"{world} ({torch.cuda.device_count()} card(s)), 2 steps replayed from the captured "
+        "FSDP step, then replayed against eager")
     md = os.path.join(work, "fsdp_main")
     ov = train_overrides(corpus, md, "exp.total_its=2", "logging.save_interval=2",
                          "logging.log_interval=1", "exp.mesh.distributed=True",
                          "exp.mesh.fsdp=True")
-    steps, orig = [], Trainer.train_step
+    steps, orig, extra = [], Trainer.train_step, {}
 
     def timed(self, audio, fs, draws=None):
+        if self.it == 0:
+            prog, extra["compile_step_s"], extra["compile_step_leaves_state"] = \
+                compile_checked(torch, self, audio, fs)
+            extra["programs_enabled"] = self.programs_enabled()
+            extra["graphs"] = None if prog is None else len(prog.graphs)
         torch.cuda.synchronize()
-        n0, t0 = fa.launch_count(), time.time()
+        n0, b0, t0 = fa.launch_count(), self.step_programs_built, time.time()
         m = orig(self, audio, fs, draws)
         loss = float(m["loss"])
         torch.cuda.synchronize()
         steps.append({"it": self.it, "wall_s": time.time() - t0, "loss": loss,
                       "launches": fa.launch_count() - n0, "backend": dist.get_backend(),
                       "world": dist.get_world_size(), "fsdp": self.fsdp,
+                      "step_programs_built": self.step_programs_built - b0,
                       "sharded_tensors": sum(d is not None for d in self.shard_dims)})
         log(json.dumps({"train_step": steps[-1]}))
+        if self.it == 2:
+            (prog,) = self._step_programs.values()
+            extra["replays_of_main"] = prog.replays
+            extra["program"] = prog.report()
+            extra["vs_eager"], extra["within_eager_spread"] = replay_vs_eager(
+                torch, fa, self, cmp_batch, cmp_draws)
         return m
 
     saved = {k: os.environ.get(k) for k in rank_env(0, 1, 0)}
@@ -1458,29 +1506,43 @@ def phase_parallel_entry(torch, fa, corpus, work, card):
     rec = {"check": "fsdp_train_entry", "steps": [s["it"] for s in steps],
            "backend": steps[0]["backend"] if steps else None, "world": world,
            "group_ended": not dist.is_initialized(), "launches": launches,
-           "expected_launches": 2 * per_step, "step_s": [s["wall_s"] for s in steps],
+           # compile_step's warm-up, 2 replays, then 2 eager steps and a replay
+           "expected_launches": (1 + 2 + 3) * per_step, "step_s": [s["wall_s"] for s in steps],
            "peak_gb": peak, "checkpoint_it": final["it"],
            "checkpoint_full_shapes": all(t.dim() > 0 for t in final["network"].values()),
-           "card": card}
+           **extra, "card": card}
     log(json.dumps(rec))
     if not (rec["steps"] == [1, 2] and rec["backend"] == "nccl" and rec["group_ended"]
             and all(s["fsdp"] and s["sharded_tensors"] == 0 for s in steps)
-            and launches == 2 * per_step and final["it"] == 2
+            and extra.get("programs_enabled") and extra.get("graphs") == 1
+            and extra.get("compile_step_leaves_state")
+            and [s["step_programs_built"] for s in steps] == [0, 0]
+            and extra.get("replays_of_main") == 2 and extra.get("within_eager_spread")
+            and all(s["launches"] == per_step for s in steps)
+            and launches == rec["expected_launches"] and final["it"] == 2
             and all(math.isfinite(s["loss"]) for s in steps)):
         fail(f"fsdp training entry point: {rec}")
     return rec
 
 
-def one_rank_steps(torch, np, corpus, work):
-    """7b's reference: the one-rank trainer's 2 steps (TF32 off) on a
-    global batch of 4 and its draws."""
+def reference_inputs(np, corpus, work):
+    """7b's inputs, made on the host: the training config of the one-rank
+    reference, 2 global batches of 4 (mixed rates) and their draws."""
+    from aid_tpu_torch import setup as tsetup
     from aid_tpu_torch import train as ttrain
     args = ttrain.compose_args(train_overrides(corpus, os.path.join(work, "ref"),
                                                "exp.lr_rampup_it=1"))
     batches = mixed_batches(np, args, 2)
-    tr = flagship_trainer(torch, args)
+    p = tsetup.setup_diff_parameters(args).params
     rng = np.random.default_rng(11)
-    draws = [numpy_draws(np, tr.p, rng, TRAIN_BATCH, int(args.exp.audio_len)) for _ in batches]
+    draws = [numpy_draws(np, p, rng, TRAIN_BATCH, int(args.exp.audio_len)) for _ in batches]
+    return args, batches, draws
+
+
+def one_rank_steps(torch, args, batches, draws):
+    """7b's reference: the one-rank trainer's 2 steps (TF32 off) on the
+    global batches and their draws."""
+    tr = flagship_trainer(torch, args)
     p0 = [p.detach().cpu() for p in tr.params]
     ref = {"loss": [], "grad_norm": []}
     for (a, f), d in zip(batches, draws):
@@ -1492,7 +1554,7 @@ def one_rank_steps(torch, np, corpus, work):
     del tr
     gc.collect()
     torch.cuda.empty_cache()
-    return batches, draws, ref
+    return ref
 
 
 def start_ranks(work):
@@ -1551,10 +1613,51 @@ def join_ranks(work, procs, timeout=900):
     return [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(PAR_WORLD)]
 
 
+def wait_for(path, timeout=900):
+    """Until ``path`` exists or ``timeout`` passes; returns the seconds."""
+    t0 = time.time()
+    while not os.path.exists(path) and time.time() - t0 < timeout:
+        time.sleep(0.2)
+    return time.time() - t0
+
+
+class CardLowWater:
+    """The card's least free memory while the context is open, every
+    process's use included (``torch.cuda.mem_get_info`` sampled every
+    0.25 s on a thread)."""
+
+    def __init__(self, torch):
+        self.torch, self.least, self.at_s = torch, None, None
+
+    def __enter__(self):
+        import threading
+        self.stop, t0 = threading.Event(), time.time()
+
+        def sample():
+            while True:
+                free, _ = self.torch.cuda.mem_get_info()
+                if self.least is None or free < self.least:
+                    self.least, self.at_s = free, time.time() - t0
+                if self.stop.wait(0.25):
+                    return
+
+        self.thread = threading.Thread(target=sample, daemon=True, name="card-low-water")
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+
+    def gb(self):
+        return self.least / 2 ** 30
+
+
 def rank_main(rank, work):
     """One rank of phase 7b-7g: a process group over gloo (two ranks share
-    the card), the kernel against its plain version, then each path with
-    the launch count set to 0 before it and read after it."""
+    the card), the kernel against its plain version, then each path (7c-7g,
+    then 7b once the parent is done) with the launch count set to 0 before
+    it and read after it."""
     import pickle
 
     import numpy as np
@@ -1595,11 +1698,18 @@ def rank_main(rank, work):
         seconds[name] = time.time() - t0
         return res
 
-    out["train"] = timed("7b", rank_train, torch, fa, np, inp, rank, world, work)
     out["serve"] = timed("7c", rank_serve, torch, fa, np, inp, rank, work)
+    if rank == PAR_WORLD - 1:                    # 7c's reference, off the parent's path
+        np.save(os.path.join(work, "serve_dp_reference.npy"),
+                timed("7c-reference", serve_dp_reference, torch, inp["request_b"]))
     out["tp"], out["cp"] = timed("7d-e", rank_scores, torch, fa)
     out["full_cp"] = timed("7f", rank_full_cp, torch, fa)
     out["serve_cp"] = timed("7g", rank_serve_cp, torch, fa, np, inp)
+    # the training steps and their programs' pools take most of the card:
+    # they run once the parent's work beside the ranks is done
+    seconds["waited_for_parent"] = wait_for(os.path.join(work, "parent_done"))
+    dist.barrier()
+    out["train"] = timed("7b", rank_train, torch, fa, np, inp, rank, world, work)
     out["seconds"] = seconds
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -1607,38 +1717,108 @@ def rank_main(rank, work):
     dist.destroy_process_group()
 
 
+def params_cpu(tr):
+    return [p.detach().cpu() for p in tr.params]
+
+
+def eager_spread(torch, tr, local):
+    """The dp step's eager reference on this rank's rows (``local``: host
+    batches and draws): step 1, then step 2 twice from step 1's state; the
+    state and ``it`` are put back to where they started. Returns (step 1's
+    parameters, both step 2's parameters on the host, both step 2's
+    walls)."""
+    it0, start = tr.it, tr._snapshot()
+    tr._train_step(*local[0], program=False)
+    p1, after, walls = params_cpu(tr), [], []
+    for _ in range(2):
+        back = tr._snapshot()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tr._train_step(*local[1], program=False)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        after.append(params_cpu(tr))
+        back()
+        tr.it = it0 + 1
+    start()
+    tr.it = it0
+    gc.collect()
+    torch.cuda.empty_cache()     # the eager steps' blocks, before the program's pool
+    return p1, after, walls
+
+
+def rel_l2(ps, ref, base):
+    """||ps - ref|| / ||ref - base|| over every tensor (the update's scale)."""
+    den = sum(((b - a).double() ** 2).sum().item() for a, b in zip(base, ref))
+    num = sum(((a - b).double() ** 2).sum().item() for a, b in zip(ps, ref))
+    return (num / den) ** 0.5 if den else float("inf")
+
+
 def rank_train(torch, fa, np, inp, rank, world, work):
-    """7b: 2 DDP steps and 2 FSDP steps on this rank's rows of the global
-    batch and draws (TF32 off); rank 0 keeps the gathered parameters."""
+    """7b on this rank's rows of the global batch and draws (TF32 off):
+    dp, the eager DDP step's reference (``eager_spread``), then 2 steps
+    through the dp step program (two graphs around the all-reduce, built
+    at the first step) whose update is held against the eager one; fsdp,
+    2 steps, eagerly by rule (gloo). Rank 0 keeps the gathered
+    parameters; each rank releases its trainer and program before the
+    next mode's."""
+    import torch.distributed as dist
     from aid_tpu_torch import train as ttrain
     res = {}
     k = TRAIN_BATCH // world
     rows = slice(rank * k, (rank + 1) * k)
+    local = [(a[rows], f[rows], [{n: v[rows] for n, v in d[0].items()}])
+             for (a, f), d in zip(inp["batches"], inp["draws"])]
     for mode, extra in (("dp", []), ("fsdp", ["exp.mesh.fsdp=True"])):
         args = ttrain.compose_args(train_overrides(
             inp["corpus"], os.path.join(work, mode), "exp.lr_rampup_it=1",
             f"exp.mesh.dp={world}", *extra))
         tr = flagship_trainer(torch, args)
-        rec = {"wrapper": type(tr.model).__name__, "loss": [], "grad_norm": [], "step_s": []}
+        rec = {"wrapper": type(tr.model).__name__, "loss": [], "grad_norm": [], "step_s": [],
+               "programs_enabled": tr.programs_enabled()}
+        if mode == "fsdp":
+            rec["eager_because"] = ("FSDP2's all-gathers and reduce-scatters sit inside its "
+                                    "one graph, and a capture holds NCCL's collectives only: "
+                                    f"this group runs {dist.get_backend(tr.mesh.get_group())}")
+        else:
+            p1, eager, rec["eager_step_s"] = eager_spread(torch, tr, local)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_count()                  # 7b's path starts here
-        for (a, f), d in zip(inp["batches"], inp["draws"]):
+        for a, f, d in local:
             t0 = time.time()
-            m = tr.train_step(a[rows], f[rows], [{n: v[rows] for n, v in d[0].items()}])
+            m = tr.train_step(a, f, d)
             rec["loss"].append(float(m["loss"]))
             rec["grad_norm"].append(float(m["grad_norm"]))
             torch.cuda.synchronize()
             rec["step_s"].append(time.time() - t0)
         rec["launches"] = fa.launch_count()      # ... and ends here
-        rec["expected_launches"] = len(inp["batches"]) * 2 * launches_per_forward(tr.net)
+        rec["step_programs_built"] = tr.step_programs_built
+        # a step that builds the program runs its warm-up step eagerly too
+        rec["expected_launches"] = ((len(local) + tr.step_programs_built) * 2
+                                    * launches_per_forward(tr.net))
         rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
         rec["resident_gb"] = torch.cuda.memory_allocated() / 2 ** 30
-        state = tr.state_dict()
-        if state is not None:
-            torch.save(state["network"], os.path.join(work, f"{mode}_params.pt"))
+        if mode == "dp":
+            (prog,) = tr._step_programs.values()
+            rec["program"] = prog.report()
+            # the hook alone (every rank calls it): the all-reduce the two
+            # graphs wait for, where DDP overlaps its buckets' with the backward
+            torch.cuda.synchronize()
+            t0 = time.time()
+            prog.hook(prog.carry)
+            torch.cuda.synchronize()
+            rec["all_reduce_s"], rec["all_reduce_bytes"] = (
+                time.time() - t0, prog.carry.numel() * prog.carry.element_size())
+            got = params_cpu(tr)
+            rec["update_rel_l2_vs_eager"] = {"program": rel_l2(got, eager[0], p1),
+                                             "eager": rel_l2(eager[1], eager[0], p1)}
+            del got, eager, p1, prog
+        params = tr._full(tr.params)             # gathered on rank 0 under fsdp
+        if params is not None:
+            torch.save(dict(zip(tr.names, params)), os.path.join(work, f"{mode}_params.pt"))
         res[mode] = rec
-        del tr, state
+        del tr, params
         gc.collect()
         torch.cuda.empty_cache()
     return res
@@ -1646,13 +1826,21 @@ def rank_train(torch, fa, np, inp, rank, world, work):
 
 def rank_serve(torch, fa, np, inp, rank, work):
     """7c: phase 5's request (b) served by shard() over dp (one row of each
-    2-row round per rank) at SERVE_DP's settings; the answer is saved for
-    the parent to hold against the one-rank service's."""
+    2-row round per rank) at SERVE_DP's settings, each rank's row through
+    its program (``precompile`` builds it first); then the same request
+    with the programs off (``heun_sample`` eagerly on the same noise). The
+    answer is saved for the parent to hold against the one-rank
+    service's."""
     from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
     from aid_tpu_torch.serving import InpaintingService
     svc = InpaintingService.from_config(SERVE_DP)
     svc.network.init_weights(0, gate_scale=MAIN_SCALE)   # phase 5's weights
     svc.shard()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    svc.precompile()
+    torch.cuda.synchronize()
+    precompile_s = time.time() - t0
     rounds, run = [], svc._run_batch
 
     def counted(xb, mb, seed):
@@ -1661,22 +1849,38 @@ def rank_serve(torch, fa, np, inp, rank, work):
 
     svc._run_batch = counted
     req = inp["request_b"]
+    audio_s = len(req["audio"]) / req["fs"]
     torch.cuda.synchronize()
     fa.reset_launch_count()                      # 7c's path starts here
     t0 = time.time()
     got = svc.inpaint(req["audio"], req["mask"], req["fs"], seed=1)
     wall = time.time() - t0
     launches = fa.launch_count()                 # ... and ends here
+    del svc._run_batch   # no cycle: freed by reference counting
     np.save(os.path.join(work, f"serve_dp_rank{rank}.npy"), got)
     obs = req["mask"] > 0.5
     steps = 2 * svc.sampler.cfg.T - 1
+    programs = program_reports(svc.sampler)
     rec = {"T": svc.sampler.cfg.T, "rounds": rounds, "max_batch": svc.max_batch,
-           "wall_s": wall, "rtf": len(req["audio"]) / req["fs"] / wall,
+           "wall_s": wall, "rtf": audio_s / wall, "precompile_s": precompile_s,
            "observed_exact": bool(np.array_equal(got[obs], req["audio"][obs])),
            "finite": bool(np.isfinite(got).all()), "launches": launches,
            "expected_launches": 90 * steps * len(rounds),
-           "programs": len(svc.sampler._programs)}
-    del svc._run_batch   # no cycle: freed by reference counting
+           "programs_enabled": svc.sampler.programs_enabled(),
+           "program_rows": [p["shape"][0] for p in programs],
+           "replays": [p["replays"] for p in programs],
+           "capture_s": [p["capture_s"] for p in programs],
+           "memory_bytes": [p["memory_bytes"] for p in programs]}
+    svc.sampler.programs_enabled = lambda: False   # the same request, eagerly
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eager = svc.inpaint(req["audio"], req["mask"], req["fs"], seed=1)
+        rec["eager_wall_s"] = time.time() - t0
+    finally:
+        del svc.sampler.programs_enabled
+    rec["eager_rtf"] = audio_s / rec["eager_wall_s"]
+    rec["program_vs_eager_max_abs"] = float(np.abs(got - eager).max())
     del svc
     gc.collect()
     torch.cuda.empty_cache()
@@ -1685,7 +1889,8 @@ def rank_serve(torch, fa, np, inp, rank, work):
 
 def serve_dp_reference(torch, request_b):
     """7c's reference: request (b) answered by the one-rank service at
-    SERVE_DP's settings (its precompiled programs)."""
+    SERVE_DP's settings (its precompiled programs; not sharded, so on a
+    rank it is the one-rank answer)."""
     from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
     from aid_tpu_torch.serving import InpaintingService
     svc = InpaintingService.from_config(SERVE_DP)
@@ -1819,11 +2024,13 @@ def rank_serve_cp(torch, fa, np, inp):
         wall = time.time() - t0
         launches = fa.launch_count()             # ... and ends here
         counts = cpmod.counts()
+        programs_enabled = svc.sampler.programs_enabled()
     finally:
         ring.set_cp_mesh(None)
     obs = req["mask"] > 0.5
     steps = 2 * svc.sampler.cfg.T - 1
     rec = {"T": svc.sampler.cfg.T, "wall_s": wall, "rtf": len(req["audio"]) / req["fs"] / wall,
+           "programs_enabled": programs_enabled,
            "rel_err": rel(torch.from_numpy(got), torch.from_numpy(ref)),
            "observed_exact": bool(np.array_equal(got[obs], req["audio"][obs])),
            "finite": bool(np.isfinite(got).all()), "launches": launches,
@@ -1835,39 +2042,46 @@ def rank_serve_cp(torch, fa, np, inp):
     return rec
 
 
-def phase_parallel(torch, fa, np, work, card, request_a, request_b, before, after):
-    """Phase 7: the one-rank training reference, then 7b-7g on PAR_WORLD
-    ranks sharing the card (gloo); while they run, this process runs
-    ``before()`` (light on device memory: the ranks' training steps peak
-    first), 7a, 7c's one-rank reference and ``after()``. Every rank path
-    is held against one rank. Returns the launches, the largest kernel
-    error and what ``before`` and ``after`` returned."""
+def phase_parallel(torch, fa, np, work, card, request_a, request_b, beside_steps,
+                   beside_scores):
+    """Phase 7: 7c-7g, then 7b, on PAR_WORLD ranks sharing the card
+    (gloo), the last rank also 7c's one-rank reference; beside their 7c-7g
+    this process runs the one-rank training reference, 7a and
+    ``beside_scores()``, then
+    lets the ranks' 7b start and runs ``beside_steps()`` (light on device
+    memory: the ranks' training steps and their programs' pools take most
+    of the card). Every rank path is held against one rank. Returns the
+    launches, the largest kernel error and what ``beside_steps`` and
+    ``beside_scores`` returned."""
     log("== phase 7: multi-device training and serving over torch.distributed")
     corpus = os.path.join(work, "maestro")
     t_phase = time.time()
     rank_dir = os.path.join(work, "ranks")
-    procs = start_ranks(rank_dir)                # importing while the reference trains
+    procs = start_ranks(rank_dir)                # importing while the inputs are made
     with killed_on_failure(procs):
-        log(f"== phase 7b reference: the one-rank trainer's 2 steps at batch {TRAIN_BATCH}, "
-            "f32, TF32 off")
-        batches, draws, ref = one_rank_steps(torch, np, corpus, work)
-        log(f"== phase 7b-7g: {PAR_WORLD} ranks on one card over gloo: dp and fsdp steps, "
-            f"shard() over dp on phase 5's request (b) at {' '.join(SERVE_DP)}, a tp=2 and "
-            "a cp=2 guided score, a full-score cp=2 score, shard() over (dp=1, cp=2) on phase "
-            "5's request (a) at T=4; this process meanwhile: 10a, 7a, 7c's reference, 8a-8b")
+        args, batches, draws = reference_inputs(np, corpus, work)
+        log(f"== phase 7b-7g: {PAR_WORLD} ranks on one card over gloo: shard() over dp on "
+            f"phase 5's request (b) at {' '.join(SERVE_DP)}, a tp=2 and a cp=2 guided score, "
+            "a full-score cp=2 score, shard() over (dp=1, cp=2) on phase 5's request (a) at "
+            "T=4 and 7c's one-rank reference (beside them this process: 7b's one-rank "
+            "reference, 7a, 8a-8b), then dp and fsdp steps (beside them: 10a)")
         t0 = time.time()
-        post_inputs(rank_dir, {"corpus": corpus, "batches": batches, "draws": draws,
-                               "request_a": request_a, "request_b": request_b})
-        first = before()
-        entry = phase_parallel_entry(torch, fa, corpus, work, card)
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"== phase 7c reference: request (b) by the one-rank service "
-            f"({' '.join(SERVE_DP)})")
-        serve_ref = serve_dp_reference(torch, request_b)
-        last = after()
-        parent_s = time.time() - t0
-    ranks = join_ranks(rank_dir, procs)
+        with CardLowWater(torch) as low:
+            post_inputs(rank_dir, {"corpus": corpus, "batches": batches, "draws": draws,
+                                   "request_a": request_a, "request_b": request_b})
+            log(f"== phase 7b reference: the one-rank trainer's 2 steps at batch {TRAIN_BATCH}, "
+                "f32, TF32 off")
+            ref = one_rank_steps(torch, args, batches, draws)
+            entry = phase_parallel_entry(torch, fa, corpus, work, card, batches[1], draws[1])
+            gc.collect()
+            torch.cuda.empty_cache()
+            last = beside_scores()
+            gc.collect()
+            torch.cuda.empty_cache()
+            open(os.path.join(rank_dir, "parent_done"), "w").close()   # 7b may start
+            first = beside_steps()
+            parent_s = time.time() - t0
+            ranks = join_ranks(rank_dir, procs)
     ranks_wall = time.time() - t0
     launches, problems = entry["launches"], []
     for r in ranks:
@@ -1899,33 +2113,69 @@ def phase_parallel(torch, fa, np, work, card, request_a, request_b, before, afte
                    "max_abs_dev": "0.1 x max move"},
                "step_s": [r["step_s"] for r in recs], "peak_gb": [r["peak_gb"] for r in recs],
                "resident_gb": [r["resident_gb"] for r in recs],
-               "launches": [r["launches"] for r in recs], "card": card}
+               "launches": [r["launches"] for r in recs],
+               "programs_enabled": [r["programs_enabled"] for r in recs],
+               "step_programs_built": [r["step_programs_built"] for r in recs], "card": card}
+        if mode == "dp":
+            rec.update(
+                eager_step_s=[r["eager_step_s"] for r in recs],
+                all_reduce_s=[r["all_reduce_s"] for r in recs],
+                all_reduce_bytes=recs[0]["all_reduce_bytes"],
+                update_rel_l2_vs_eager=[r["update_rel_l2_vs_eager"] for r in recs],
+                program=[{k: r["program"][k] for k in ("graphs", "hook", "replays", "capture_s",
+                                                       "memory_bytes", "launches_per_replay")}
+                         for r in recs])
+        else:
+            rec["eager_because"] = recs[0]["eager_because"]
         log(json.dumps(rec))
         launches += sum(rec["launches"])
         if not (rec["loss_rel_err"] <= F32_TOL and rec["grad_norm_rel_err"] <= F32_TOL
                 and rec["update_rel_l2"] <= 1e-3 and dev <= 0.1 * moved
                 and all(r["launches"] == r["expected_launches"] for r in recs)):
             problems.append(f"{mode} steps against the one-rank steps")
+        if mode == "dp" and not all(
+                r["programs_enabled"] and r["step_programs_built"] == 1
+                and r["program"]["graphs"] == 2 and r["program"]["hook"]
+                and r["program"]["replays"] == len(r["step_s"])
+                and r["update_rel_l2_vs_eager"]["program"]
+                <= max(2 * r["update_rel_l2_vs_eager"]["eager"], 1e-5) for r in recs):
+            problems.append("the dp step program against the eager DDP step")
+        if mode == "fsdp" and not all(not r["programs_enabled"]
+                                      and r["step_programs_built"] == 0 for r in recs):
+            problems.append("fsdp over gloo runs eagerly")
         summary[mode] = {"step_s": float(np.median([s for r in recs for s in r["step_s"][1:]])),
                          "peak_gb_per_rank": max(rec["peak_gb"]),
                          "resident_gb_per_rank": max(rec["resident_gb"])}
+        if mode == "dp":
+            summary[mode].update(
+                eager_step_s=float(np.median([s for r in recs for s in r["eager_step_s"]])),
+                memory_bytes_per_rank=[r["program"]["memory_bytes"] for r in recs])
     serve = [r["serve"] for r in ranks]
     answers = [np.load(os.path.join(rank_dir, f"serve_dp_rank{r}.npy"))
                for r in range(PAR_WORLD)]
+    serve_ref = np.load(os.path.join(rank_dir, "serve_dp_reference.npy"))
     rec = {"check": "shard_dp_serving", **serve[0], "tol": BF16_TOL,
            "rel_err": rel(torch.from_numpy(answers[0]), torch.from_numpy(serve_ref)),
            "ranks_agree": all(np.array_equal(a, answers[0]) for a in answers),
            "launches": [s["launches"] for s in serve], "card": card}
     log(json.dumps(rec))
     launches += sum(s["launches"] for s in serve)
+    rec.update({k: [s[k] for s in serve] for k in (
+        "program_vs_eager_max_abs", "rtf", "eager_rtf", "memory_bytes", "replays")})
     if not (rec["finite"] and rec["observed_exact"] and rec["rel_err"] <= BF16_TOL
-            and rec["ranks_agree"] and rec["rounds"] == [2, 2] and rec["programs"] == 0
+            and rec["ranks_agree"] and rec["rounds"] == [2, 2]
+            and all(s["programs_enabled"] and s["program_rows"] == [1]
+                    and s["replays"] == [s["T"] * len(s["rounds"])]
+                    and s["program_vs_eager_max_abs"] == 0.0 for s in serve)
             and all(s["launches"] == s["expected_launches"] for s in serve)):
-        problems.append("dp serving against the one-rank answer")
-    summary["dp_serving_rtf"] = serve[0]["rtf"]
+        problems.append("dp serving against the one-rank answer and its eager run")
+    summary["dp_serving_rtf"] = [s["rtf"] for s in serve]
+    summary["dp_serving_eager_rtf"] = [s["eager_rtf"] for s in serve]
+    eager_by_rule = ("eagerly: its collectives sit inside every score, and a CUDA graph "
+                     "holds only NCCL's, which needs a card a rank")
     for name in ("tp", "cp"):
         recs = [r[name] for r in ranks]
-        rec = {"check": f"{name}_guided_score", **recs[0],
+        rec = {"check": f"{name}_guided_score", **recs[0], "runs": eager_by_rule,
                "rel_err_by_rank": [r["rel_err"] for r in recs], "card": card}
         log(json.dumps(rec))
         launches += sum(r["launches"] for r in recs)
@@ -1936,7 +2186,7 @@ def phase_parallel(torch, fa, np, work, card, request_a, request_b, before, afte
         summary[name] = {"rel_err": recs[0]["rel_err"], "replicated_s": recs[0]["replicated_s"],
                          f"{name}_s": recs[0][f"{name}_s"]}
     recs = [r["full_cp"] for r in ranks]
-    rec = {"check": "full_score_cp_guided_score", **recs[0],
+    rec = {"check": "full_score_cp_guided_score", **recs[0], "runs": eager_by_rule,
            "guided_score_rel_err_by_rank": [r["guided_score_rel_err"] for r in recs],
            "card": card}
     log(json.dumps(rec))
@@ -1952,16 +2202,21 @@ def phase_parallel(torch, fa, np, work, card, request_a, request_b, before, afte
                                                    "cp_s")}
     serve = [r["serve_cp"] for r in ranks]
     rec = {"check": "shard_dp1_cp2_serving", **serve[0], "tol": BF16_TOL,
+           "runs": eager_by_rule,
            "ranks_agree": all(s["rel_err"] == serve[0]["rel_err"] for s in serve),
            "launches": [s["launches"] for s in serve], "card": card}
     log(json.dumps(rec))
     launches += sum(s["launches"] for s in serve)
     if not (rec["finite"] and rec["observed_exact"] and rec["rel_err"] <= BF16_TOL
             and rec["ranks_agree"] and rec["levels_replicated"] == 0
+            and not any(s["programs_enabled"] for s in serve)
             and all(s["launches"] == s["expected_launches"] for s in serve)):
         problems.append("(dp=1, cp=2) serving against the one-rank answer")
     summary["cp_serving_rtf"] = serve[0]["rtf"]
     summary.update(fsdp_entry_step_s=entry["step_s"], fsdp_entry_peak_gb=entry["peak_gb"],
+                   fsdp_entry_vs_eager_wall_s=entry["vs_eager"]["wall_s"],
+                   fsdp_entry_memory_bytes=entry["program"]["memory_bytes"],
+                   card_free_low_water_gb=low.gb(), card_free_low_water_at_s=low.at_s,
                    ranks_wall_s=ranks_wall, parent_meanwhile_s=parent_s,
                    rank_seconds=[r["seconds"] for r in ranks],
                    phase_s=time.time() - t_phase, card=card)
@@ -2757,9 +3012,10 @@ def main():
         with phase_time("6"):
             train_launches, train_err = phase_training(torch, fa, np, work, card, shapes)
 
-        def learning():                  # the time-gap demo and 10a, beside phase 7's ranks
-            demos.update(start_demo(work, "time_gap",
-                                    os.path.join(work, "main", "22k_8s-4.pt")))
+        # the time-gap demo's process runs beside phase 7
+        demos.update(start_demo(work, "time_gap", os.path.join(work, "main", "22k_8s-4.pt")))
+
+        def learning():                  # 10a, beside phase 7's training steps
             with phase_time("10a"):
                 log("== phase 10: the port learns; the user tools on the card")
                 launches = {}
@@ -2773,7 +3029,7 @@ def main():
         with phase_time("7-10a-8ab"):
             parallel_launches, parallel_err, gate, testing_ab = phase_parallel(
                 torch, fa, np, work, card, answers["a_centre_gap_1500ms"], request_b,
-                learning, evaluation_ab)
+                beside_steps=learning, beside_scores=evaluation_ab)
         demos.update(start_demo(work, "spectrogram"))    # beside 8c-8d and 10b-10d
         with phase_time("8c-d"):
             test_launches, testing = phase_testing_c(torch, fa, np, work, card, testing_ab)

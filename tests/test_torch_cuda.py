@@ -234,15 +234,7 @@ def test_tiny_task_programs_graphs_equal_eager(cuda, task):
         assert ((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item() <= 1e-5
 
 
-def test_tiny_step_program_on_the_card(cuda, tmp_path):
-    """The trainer's captured step (tiny net, remat, f32, TF32 off):
-    ``compile_step`` leaves the state, ``it`` and the generator as they
-    were; the replayed step agrees with the eager step from the same state
-    and draws (loss to 1e-5, the update to 1e-4 in L2: cuDNN's weight
-    gradients may sum in another order), launches what its capture
-    recorded, and one step's metrics do not alias the next's."""
-    import numpy as np
-
+def _tiny_trainer(tmp_path, *extra):
     from aid_tpu_torch import setup as tsetup
     from aid_tpu_torch.train import compose_args
 
@@ -250,19 +242,29 @@ def test_tiny_step_program_on_the_card(cuda, tmp_path):
         "exp.audio_len=2048", "exp.lr_rampup_it=1", "network.cqt.num_octs=3",
         "network.cqt.bins_per_oct=8", "network.Ns=[8,16,16]", "network.num_dils=[1,1,1]",
         "network.attention_layers=[0,0,1,1]", "logging.print_model_summary=False",
-        f"model_dir={tmp_path}"])
+        f"model_dir={tmp_path}", *extra])
+    net = tsetup.setup_network(args, device="cuda", seed=3, trainable=True)
+    return tsetup.setup_trainer(args, network=net, diff_params=tsetup.setup_diff_parameters(args))
+
+
+def _replayed_against_eager(tr, graphs=1):
+    """``compile_step`` leaves the state, ``it`` and the generator as they
+    were; the replayed step agrees with the eager step from the same state
+    and draws (loss to 1e-5, the update to 1e-4 in L2: cuDNN's weight
+    gradients may sum in another order), launches what its capture
+    recorded, and one step's metrics do not alias the next's."""
+    import numpy as np
+
     rng = np.random.default_rng(0)
     audio = (rng.standard_normal((4, 4400)) * 0.1).astype(np.float32)
     fs = np.array([44100, 48000, 44100, 48000])
-    net = tsetup.setup_network(args, device="cuda", seed=3, trainable=True)
-    tr = tsetup.setup_trainer(args, network=net, diff_params=tsetup.setup_diff_parameters(args))
     tr.init_state()
     # detached copies: a copy that kept the autograd graph would hold the
     # parameters' gradient accumulators on this stream, and the capture fails
     state = [t.detach().clone() for t in tr._state()]
     gen, it = tr.gen.get_state(), tr.it
     prog = tr.compile_step(audio, fs)
-    assert prog.graph is not None and prog.launches > 0 and prog.memory_bytes() > 0
+    assert len(prog.graphs) == graphs and prog.launches > 0 and prog.memory_bytes() > 0
     assert all(torch.equal(a, b) for a, b in zip(tr._state(), state))
     assert tr.it == it and torch.equal(tr.gen.get_state(), gen)
     tr.train_step(audio, fs)                       # step 1 (lr 0), replayed
@@ -278,6 +280,7 @@ def test_tiny_step_program_on_the_card(cuda, tmp_path):
     m = tr.train_step(audio, fs)
     torch.cuda.synchronize()
     assert tr.step_programs_built == 1 and fa.launch_count() == prog.launches
+    assert prog.replays == 2
     assert abs(float(m["loss"]) - float(eager["loss"])) <= 1e-5 * abs(float(eager["loss"]))
     num = sum(float((a.detach() - b).double().pow(2).sum()) for a, b in zip(tr.params, p_eager))
     den = sum(float((b - a).double().pow(2).sum()) for a, b in zip(p1, p_eager))
@@ -285,6 +288,72 @@ def test_tiny_step_program_on_the_card(cuda, tmp_path):
     kept = {k: v.clone() for k, v in m.items() if torch.is_tensor(v)}
     tr.train_step(audio, fs)
     assert all(torch.equal(m[k], v) for k, v in kept.items())
+
+
+def test_tiny_step_program_on_the_card(cuda, tmp_path):
+    """The trainer's captured step (tiny net, remat, f32, TF32 off), held
+    against its eager step (``_replayed_against_eager``)."""
+    _replayed_against_eager(_tiny_trainer(tmp_path))
+
+
+@pytest.fixture
+def nccl(cuda):
+    """A one-rank NCCL process group on the card for the test's duration."""
+    import torch.distributed as dist
+
+    from aid_tpu_torch.parallel import mesh as pmesh
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{pmesh._free_port()}",
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        gc.collect()              # every graph that holds the communicator, first
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+def test_a_captured_nccl_all_reduce_equals_eager(nccl):
+    """NCCL's collectives can be captured (after a first eager call, which
+    makes the communicator): a replayed all-reduce equals the eager one."""
+    from aid_tpu_torch.parallel import mesh as pmesh
+    from aid_tpu_torch.utils import graphs
+
+    assert pmesh.captures_collectives()
+    x = torch.arange(4096, dtype=torch.float32, device="cuda")
+    buf = torch.zeros_like(x)
+
+    def fn():
+        y = buf * 3 + 1
+        pmesh.all_reduce(y)
+        return y
+
+    stream = graphs.capture_stream("cuda")
+    graphs.warm_up([fn], stream)
+    g, out, _, _ = graphs.capture(fn, stream, what="an all-reduce")
+    buf.copy_(x)
+    g.replay()
+    ref = x * 3 + 1
+    pmesh.all_reduce(ref)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("mode", ["dp", "fsdp", "fsdp_every_tensor"])
+def test_tiny_step_under_one_nccl_rank_replays_its_eager_step(nccl, tmp_path, monkeypatch,
+                                                              mode):
+    """Under a one-rank NCCL group: the dp step as two graphs around its
+    all-reduce; the FSDP2 step as one graph with the trainer's all-reduces
+    inside (at one rank the rule shards nothing), and with every tensor
+    handed to FSDP2 (its all-gathers and reduce-scatters inside the graph);
+    each held against its eager step (``_replayed_against_eager``)."""
+    from aid_tpu_torch.parallel import mesh as pmesh
+    if mode == "fsdp_every_tensor":
+        monkeypatch.setattr(pmesh, "fsdp_shard_dim", lambda shape, n, min_size=0: 0)
+    tr = _tiny_trainer(tmp_path, *([] if mode == "dp" else ["exp.mesh.fsdp=True"]))
+    assert tr.programs_enabled() and tr.fsdp == (mode != "dp")
+    assert sum(d is not None for d in tr.shard_dims) == (
+        len(tr.shard_dims) if mode == "fsdp_every_tensor" else 0)
+    _replayed_against_eager(tr, graphs=2 if mode == "dp" else 1)
 
 
 class _Cycle:

@@ -9,16 +9,20 @@ imports no JAX); their results are held here against JAX computed in this
 process (the 8-device CPU mesh of tests/conftest.py) or against the
 one-rank port:
 
-  * train (2 ranks): 3 DDP steps and 3 FSDP steps of the tiny trainer
+  * train (2 ranks): 3 DDP steps (eagerly and through the dp step
+    program) and 3 FSDP steps of the tiny trainer
     (tests/test_torch_trainer.py's configuration) on JAX's global batch and
-    draws, split by rank; the FSDP state's shards; an FSDP checkpoint saved
+    draws, split by rank; the rule that says which steps run as programs
+    and the capture guard; the FSDP state's shards; an FSDP checkpoint saved
     at world 2 and resumed at world 1, and one saved at world 1 and resumed
     at world 2;
   * attention (2 ranks): ring attention with a bias (forward and the q, k,
     v and bias gradients), the U-Net with cp attention (forward and input
-    gradient), the tp=2 U-Net (forward and guided score), and a request
-    served by ``shard`` over dp=2;
-  * serve_dp_tp (4 ranks): the request served over a dp=2 x tp=2 mesh.
+    gradient), the tp=2 U-Net (forward and guided score), a request
+    served by ``shard`` over dp=2 through each rank's programs, and the
+    capture guard of every collective;
+  * serve_dp_tp (4 ranks): the request served over a dp=2 x tp=2 mesh
+    (eagerly), the refusals, ``autotune_max_batch`` over dp=4.
 
 Everything is f32; each tolerance is stated where it is used.
 """
@@ -231,9 +235,13 @@ def _state(payload):
 # pre-clip gradient norm and its EMA 1e-5 relative; the loss statistics 1e-4;
 # the parameter update and the EMA's move 2e-3 relative in L2 and each
 # element within 10% of the largest step; Adam's moments 1e-3 relative in L2.
-@pytest.mark.parametrize("mode,wrapper", [("dp", "DistributedDataParallel"),
-                                          ("fsdp", "FSDPUnetCQT")])
-def test_data_parallel_steps_match_jax(train_runs, mode, wrapper):
+@pytest.mark.parametrize("mode,wrapper,program", [("dp", "DistributedDataParallel", False),
+                                                  ("dp", "DistributedDataParallel", True),
+                                                  ("fsdp", "FSDPUnetCQT", False)])
+def test_data_parallel_steps_match_jax(train_runs, mode, wrapper, program):
+    """The DDP step eagerly and through its step program (head, all-reduce,
+    tail), and the FSDP step (eager over gloo, by rule)."""
+    mode += "_program" if program else ""
     run = train_runs["ranks"][0][mode]
     assert run["wrapper"] == wrapper
     for got, ref in zip(run["metrics"], train_runs["jax_metrics"]):
@@ -261,12 +269,16 @@ def test_data_parallel_steps_match_jax(train_runs, mode, wrapper):
         assert _rel_l2(got[k], ref[k]) <= 1e-3, k
 
 
-def test_dp_gradient_accumulation_matches_one_rank(train_runs):
-    """Two micro-batches a step under DDP (no sync but on the last): the
-    one-rank trainer's steps (held to JAX by tests/test_torch_trainer.py),
-    loss and norm within 1e-5, the state within 1e-4 relative in L2."""
+@pytest.mark.parametrize("program", [False, True])
+def test_dp_gradient_accumulation_matches_one_rank(train_runs, program):
+    """Two micro-batches a step under DDP (no sync but on the last), eagerly
+    and through the step program (both micro-batches in its head, one
+    all-reduce): the one-rank trainer's steps (held to JAX by
+    tests/test_torch_trainer.py), loss and norm within 1e-5, the state
+    within 1e-4 relative in L2."""
     ref_metrics, ref = train_runs["accumulate"]
-    run = train_runs["ranks"][0]["dp_accumulate2"]
+    run = train_runs["ranks"][0]["dp_accumulate2" + ("_program" if program else "")]
+    assert run["step_programs_built"] == int(program)
     for got, want in zip(run["metrics"], ref_metrics):
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5, err_msg=k)
@@ -275,6 +287,40 @@ def test_dp_gradient_accumulation_matches_one_rank(train_runs):
         assert _rel_l2(got[k], ref[k], train_runs["p0"]) <= 1e-4, k
     for k in ("mu", "nu"):
         assert _rel_l2(got[k], ref[k]) <= 1e-4, k
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_the_dp_program_equals_the_ddp_step(train_runs, accumulate):
+    """Through its step program (one build, then replays) a dp run ends
+    where the eager DDP run ends, bit for bit: the head scales each rank's
+    gradients by 1/2 as DDP scales them into its buckets, and the two
+    ranks' sum is the same sum."""
+    name = "dp_accumulate2" if accumulate else "dp"
+    eager, prog = (train_runs["ranks"][0][name + s] for s in ("", "_program"))
+    assert prog["step_programs_built"] == 1
+    for got, want in zip(prog["metrics"], eager["metrics"]):
+        for k in ("loss", "grad_norm", "gnorm_ema", "sigma_bins", "loss_moments"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    got, want = _state(prog["state"]), _state(eager["state"])
+    for k in got:
+        for n in got[k]:
+            assert torch.equal(got[k][n], want[k][n]), (k, n)
+
+
+def test_programs_follow_the_rule_under_gloo(train_runs):
+    """At world 2 over gloo: a dp trainer runs programs, an FSDP trainer
+    eagerly (gloo's collectives cannot sit inside its one graph). With
+    the stream reading as capturing, the dp program's head and tail make
+    no collective and its all-reduce, like every collective of the port
+    over gloo, raises and names the backend."""
+    for rank in train_runs["ranks"]:
+        assert rank["dp"]["programs_enabled"] and rank["dp_program"]["programs_enabled"]
+        assert not rank["fsdp"]["programs_enabled"]
+        assert rank["fsdp"]["step_programs_built"] == 0
+        assert rank["dp_program"]["step_programs_built"] == 1
+        cap = rank["dp_program"]["capturing"]
+        assert cap["head"] == cap["tail"] == "no error"
+        assert "gloo collective" in cap["reduce"]
 
 
 def test_fsdp_state_is_sharded(train_runs):
@@ -503,14 +549,31 @@ def _check_served(got, attention_runs, n_dp):
 
 
 def test_shard_dp_serves_the_one_rank_answer(attention_runs):
+    """A dp=2 mesh: each rank runs its row of every round through its own
+    program (one row a rank: one program) and returns the whole answer."""
     for r in attention_runs["ranks"]:
         _check_served(r["serve_dp"], attention_runs, 2)
+        assert r["serve_dp"]["programs_enabled"] and r["serve_dp"]["program_rows"] == [1]
 
 
 def test_shard_dp_tp_serves_the_one_rank_answer(attention_runs):
-    """A dp=2 x tp=2 mesh (4 ranks): every rank returns the whole answer."""
+    """A dp=2 x tp=2 mesh (4 ranks): every rank returns the whole answer,
+    its trajectories run eagerly (the split layers' collectives sit inside
+    every score)."""
     for r in attention_runs["dp_tp"]:
         _check_served(r["served"], attention_runs, 2)
+        assert not r["served"]["programs_enabled"] and r["served"]["program_rows"] == []
+
+
+def test_collectives_raise_while_capturing_over_gloo(attention_runs):
+    """Every collective of the port's step and score, called over gloo with
+    the stream reading as capturing, raises and names the backend instead
+    of running on the host at capture time."""
+    for r in attention_runs["ranks"]:
+        assert set(r["capturing"]) == {"all_reduce", "all_gather", "sum_over_ranks", "ring_hop"}
+        for name, msg in r["capturing"].items():
+            assert "a gloo collective was called while a CUDA graph is being captured" in msg, \
+                name
 
 
 def test_shard_needs_a_group_and_full_score_cp_raises():
@@ -526,5 +589,15 @@ def test_shard_needs_a_group_and_full_score_cp_raises():
 
 
 def test_refusals_under_a_group(attention_runs):
+    """A tp x cp mesh, and autotune_max_batch over a tp mesh (its
+    trajectories run eagerly: no program to measure), raise."""
     for r in attention_runs["dp_tp"]:
         assert r["refused"] == {"tp_cp_mesh": "ValueError", "autotune": "RuntimeError"}
+
+
+def test_autotune_over_dp_agrees_on_the_tightest_rank(attention_runs):
+    """Over a dp=4 mesh each rank fits 8, 4, 2 and 2 rows (stand-in
+    footprints); every rank returns the tightest rank's rows times the dp
+    size, and max_batch (4 after shard) is not raised."""
+    for r in attention_runs["dp_tp"]:
+        assert r["autotuned"] == {"rows": 8, "max_batch": 4}

@@ -13,8 +13,9 @@ the five other tasks' programs the JAX ``Sampler``'s compiled programs
 with JAX's noise injected. The sampler's cache returns the same program
 for the same key and a new one for a new shape, a new BWE filter, a
 patched fused function or replaced weights, but not for a new mask, clip
-value or spectral mask; runs do not alias; a sharded service stays eager;
-``precompile``, ``_compiled_for_batch`` and ``_footprint`` read the
+value or spectral mask; runs do not alias; under a process group a dp
+mesh's service runs its programs and a network that communicates (tp, cp)
+runs eagerly; ``precompile``, ``_compiled_for_batch`` and ``_footprint`` read the
 program (``memory_bytes`` stubbed: it measures CUDA memory).
 """
 import dataclasses
@@ -364,22 +365,76 @@ def test_rid_mode_stays_eager(nets):
         prog.records.denoised.data_ptr()
 
 
-def test_a_sharded_service_stays_eager(tmp_path):
-    svc = InpaintingService.from_config(TINY, device="cpu")
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A one-rank gloo process group for the test's duration."""
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
                             rank=0, world_size=1)
     try:
-        svc.shard()
-        assert not svc.sampler.programs_enabled()
-        audio = (np.random.default_rng(2).standard_normal(3000) * 0.1).astype(np.float32)
-        mask = np.ones(3000, np.float32)
-        mask[1000:1200] = 0.0
-        out = svc.inpaint(audio, mask, 4096, seed=1)
-        svc.precompile()
-        assert np.isfinite(out).all() and not svc.sampler._programs
+        yield
     finally:
         dist.destroy_process_group()
+
+
+def _host_request():
+    """A 3000-sample request at 4096 Hz with one 200-sample gap."""
+    audio = (np.random.default_rng(2).standard_normal(3000) * 0.1).astype(np.float32)
+    mask = np.ones(3000, np.float32)
+    mask[1000:1200] = 0.0
+    return audio, mask
+
+
+def test_a_dp_sharded_service_serves_through_its_programs(one_rank_group):
+    """Under a process group a dp mesh's trajectories make no collective:
+    the rank's rows run through its program, and at one rank the answer is
+    the unsharded service's bit for bit."""
+    audio, mask = _host_request()
+    ref = InpaintingService.from_config(TINY, device="cpu").inpaint(audio, mask, 4096, seed=1)
+    svc = InpaintingService.from_config(TINY, device="cpu").shard()
     assert svc.sampler.programs_enabled()
+    out = svc.inpaint(audio, mask, 4096, seed=1)
+    assert np.array_equal(out, ref)
+    (prog,) = svc.sampler._programs.values()
+    assert prog.task == "inpainting" and prog.shape[0] == 1
+
+
+def test_precompile_under_a_dp_mesh_builds_the_rank_row_counts(one_rank_group):
+    """After ``shard`` precompile builds this rank's programs, from its rows
+    of max_batch down to 1."""
+    svc = InpaintingService.from_config(TINY, device="cpu", max_batch=3).shard()
+    svc.precompile()
+    L = int(svc.args.exp.audio_len)
+    assert [p.shape for p in svc.sampler._programs.values()] == [(3, L), (2, L), (1, L)]
+
+
+@pytest.mark.parametrize("split", ["tp", "cp"])
+def test_a_network_that_communicates_runs_eagerly(one_rank_group, split):
+    """A network split over tp ranks, or context-parallel under an installed
+    cp mesh, makes collectives inside every score: its trajectories run
+    eagerly, by rule, and so do its training steps; a cp flag without a cp
+    mesh changes nothing."""
+    from aid_tpu_torch.parallel import mesh as pmesh
+    from aid_tpu_torch.parallel import ring_attention as ring
+    from aid_tpu_torch.training.trainer import Trainer
+    svc = InpaintingService.from_config(TINY, device="cpu")
+    if split == "tp":
+        layer = next(m for m in svc.network.modules() if hasattr(m, "tp_group"))
+        layer.tp_group = dist.group.WORLD
+    else:
+        for m in svc.network.modules():
+            if hasattr(m, "context_parallel"):
+                m.context_parallel = True
+        assert svc.sampler.programs_enabled()
+        ring.set_cp_mesh(ring.make_cp_mesh(1, device_type="cpu"))
+    try:
+        assert pmesh.communicates(svc.network) and not svc.sampler.programs_enabled()
+        trainer = SimpleNamespace(net=svc.network, fsdp=False, mesh=None)
+        assert not Trainer.programs_enabled(trainer)
+        out = svc.inpaint(*_host_request(), 4096, seed=1)
+        assert np.isfinite(out).all() and not svc.sampler._programs
+    finally:
+        ring.set_cp_mesh(None)
+    assert svc.sampler.programs_enabled() == (split == "cp")
 
 
 def test_precompile_builds_the_max_batch_program():

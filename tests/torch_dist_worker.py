@@ -76,15 +76,60 @@ def _rows(a, rank, world):
     return a[:, rank * k:(rank + 1) * k]
 
 
-def _local_step(tr, step, rank, world):
-    """One train_step on this rank's rows and draws of a global step
+def _local(step, rank, world):
+    """This rank's host audio [n_accum k, T], fs and draws of a global step
     (audio [n_accum, B, T], fs [n_accum, B], draws per micro-batch)."""
     audio, fs, draws = step
     n_accum = audio.shape[0]
     audio, fs = _rows(audio, rank, world), _rows(fs, rank, world)
     k = audio.shape[1]
     mine = [{n: v[rank * k:(rank + 1) * k] for n, v in d.items()} for d in draws]
-    return tr.train_step(audio.reshape(n_accum * k, -1), fs.reshape(-1), mine)
+    return audio.reshape(n_accum * k, -1), fs.reshape(-1), mine
+
+
+def _local_step(tr, step, rank, world, program=None):
+    """One step on this rank's rows and draws of a global step: as
+    ``train_step`` runs it, or through the step program (``program``
+    True) or eagerly (False)."""
+    if program is None:
+        return tr.train_step(*_local(step, rank, world))
+    return tr._train_step(*_local(step, rank, world), program)
+
+
+class _Capturing:
+    """Within it, the current CUDA stream reads as capturing (on the CPU)."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cuda.is_built, torch.cuda.is_current_stream_capturing
+        torch.backends.cuda.is_built = torch.cuda.is_current_stream_capturing = lambda: True
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.is_built, torch.cuda.is_current_stream_capturing = self.saved
+
+
+def _raised(fn):
+    """The message ``fn()`` raised RuntimeError with, or "no error"."""
+    try:
+        fn()
+    except RuntimeError as e:
+        return str(e)
+    return "no error"
+
+
+def _dp_pieces_capturing(tr, step, rank, world):
+    """The dp step program's three pieces with the stream reading as
+    capturing: what each raised (the state is put back after)."""
+    restore = tr._snapshot()
+    x, d = tr._inputs(*tr._split(*_local(step, rank, world)[:2]), _local(step, rank, world)[2])
+    keep = torch.tensor(0.5)
+    got = {}
+    with _Capturing():
+        flat = []
+        got["head"] = _raised(lambda: flat.append(tr._dp_head(x, d)))
+        got["reduce"] = _raised(lambda: tr._dp_reduce(flat[0]))
+        got["tail"] = _raised(lambda: tr._dp_tail(flat[0], keep))
+    restore()
+    return got
 
 
 def _metrics(m):
@@ -97,13 +142,18 @@ def job_train(inp, rank, world, workdir):
     micro-batches a step; an fsdp run saved at step 2; a world-1 checkpoint
     resumed under fsdp for the last step."""
     out = {}
-    for mode, extra in (("dp", ["exp.mesh.dp=2"]), ("fsdp", inp["fsdp"])):
+    for mode, extra, program in (("dp", ["exp.mesh.dp=2"], False),
+                                 ("dp_program", ["exp.mesh.dp=2"], True),
+                                 ("fsdp", inp["fsdp"], None)):
         tr = _trainer(inp, extra, os.path.join(workdir, mode))
         tr.init_state()
         out[mode] = {"wrapper": type(tr.model).__name__,
-                     "metrics": [_metrics(_local_step(tr, s, rank, world))
+                     "metrics": [_metrics(_local_step(tr, s, rank, world, program))
                                  for s in inp["steps"]],
-                     "state": tr.state_dict()}
+                     "state": tr.state_dict(), "programs_enabled": tr.programs_enabled(),
+                     "step_programs_built": tr.step_programs_built}
+        if mode == "dp_program":
+            out[mode]["capturing"] = _dp_pieces_capturing(tr, inp["steps"][0], rank, world)
         if mode == "fsdp":
             out[mode]["local_fraction"] = {
                 k: [t.numel() / int(np.prod(s)) for t, s in zip(ts, tr.shapes)]
@@ -111,12 +161,13 @@ def job_train(inp, rank, world, workdir):
                               ("nu", tr.nu))}
             out[mode]["shard_dims"] = tr.shard_dims
     # gradient accumulation: DDP syncs on the last micro-batch only
-    tr = _trainer(inp, ["exp.mesh.dp=2", "exp.num_accumulation_rounds=2"],
-                  os.path.join(workdir, "accumulate"))
-    tr.init_state()
-    out["dp_accumulate2"] = {"metrics": [_metrics(_local_step(tr, s, rank, world))
-                                         for s in inp["accumulate_steps"]],
-                             "state": tr.state_dict()}
+    for name, program in (("dp_accumulate2", False), ("dp_accumulate2_program", True)):
+        tr = _trainer(inp, ["exp.mesh.dp=2", "exp.num_accumulation_rounds=2"],
+                      os.path.join(workdir, name))
+        tr.init_state()
+        out[name] = {"metrics": [_metrics(_local_step(tr, s, rank, world, program))
+                                 for s in inp["accumulate_steps"]],
+                     "state": tr.state_dict(), "step_programs_built": tr.step_programs_built}
     tr = _trainer(inp, inp["fsdp"], os.path.join(workdir, "saved"))
     tr.init_state()
     for s in inp["steps"][:2]:
@@ -201,11 +252,28 @@ def job_attention(inp, rank, world, workdir):
                  "placements": tp.param_placements(net, world),
                  "local_fraction": {n: q.shape[0] for n, q in net.named_parameters()}}
 
-    out["serve_dp"] = _serve(inp["serve"], pmesh.make_mesh(device_type="cpu"))
+    out["serve_dp"] = _serve(inp["serve"], pmesh.make_mesh(device_type="cpu"))[0]
+    out["capturing"] = _collectives_capturing()
     return out
 
 
+def _collectives_capturing():
+    """What each of the port's collectives over this gloo group raised with
+    the stream reading as capturing."""
+    from aid_tpu_torch.parallel import mesh as pmesh
+    from aid_tpu_torch.parallel import ring_attention as ring
+    from aid_tpu_torch.training import stats as tstats
+    t = torch.ones(4)
+    with _Capturing():
+        return {"all_reduce": _raised(lambda: pmesh.all_reduce(t)),
+                "all_gather": _raised(lambda: pmesh.all_gather([t.clone(), t.clone()], t)),
+                "sum_over_ranks": _raised(lambda: tstats.sum_over_ranks([t])),
+                "ring_hop": _raised(lambda: ring._hop([t], dist.group.WORLD, 0, 0))}
+
+
 def _serve(s, mesh):
+    """The request served after ``shard(mesh)``: (its answer, rounds, what
+    the sampler's rule said and the programs it holds; the service)."""
     from aid_tpu_torch.serving import InpaintingService
     svc = InpaintingService.from_config(s["overrides"], device="cpu", max_batch=s["max_batch"])
     svc.shard(mesh)
@@ -217,8 +285,12 @@ def _serve(s, mesh):
         return run(xb, mb, seed)
 
     svc._run_batch = counted
-    return {"out": svc.inpaint(s["audio"], s["mask"], s["fs"], seed=s["seed"]),
-            "rounds": rounds, "max_batch": svc.max_batch}
+    got = {"out": svc.inpaint(s["audio"], s["mask"], s["fs"], seed=s["seed"]),
+           "rounds": rounds, "max_batch": svc.max_batch,
+           "programs_enabled": svc.sampler.programs_enabled(),
+           "program_rows": [p.shape[0] for p in svc.sampler._programs.values()]}
+    del svc._run_batch
+    return got, svc
 
 
 def job_serve_dp_tp(inp, rank, world, workdir):
@@ -228,18 +300,26 @@ def job_serve_dp_tp(inp, rank, world, workdir):
     from aid_tpu_torch.parallel import ring_attention as ring
     from aid_tpu_torch.parallel import tp
     from aid_tpu_torch.serving import InpaintingService
-    served = _serve(inp["serve"], tp.make_tp_mesh(2, n_dp=world // 2, device_type="cpu"))
+    served, tp_svc = _serve(inp["serve"], tp.make_tp_mesh(2, n_dp=world // 2,
+                                                          device_type="cpu"))
     refused = {}
     svc = InpaintingService.from_config(inp["serve"]["overrides"], device="cpu")
     tp_cp = ("tp", ring.CP_AXIS)
     for name, call in (("tp_cp_mesh", lambda: svc.shard(pmesh.make_grid(2, world // 2, tp_cp,
                                                                          "cpu"))),
-                       ("autotune", lambda: svc.shard().autotune_max_batch(limit_bytes=2 ** 30))):
+                       ("autotune", lambda: tp_svc.autotune_max_batch(limit_bytes=2 ** 30))):
         try:
             call()
         except (ValueError, RuntimeError) as e:
             refused[name] = type(e).__name__
-    return {"served": served, "refused": refused}
+    # over a dp mesh each rank measures its own footprint (here a stand-in
+    # that grows by (rank + 1) x 100 MiB a row) and the ranks agree on the
+    # tightest rank's rows
+    svc.shard()
+    svc._footprint = lambda n: (10 + 100 * n * (rank + 1)) * 2 ** 20
+    autotuned = {"rows": svc.autotune_max_batch(limit_bytes=2 ** 30),
+                 "max_batch": svc.max_batch}
+    return {"served": served, "refused": refused, "autotuned": autotuned}
 
 
 # ------------------------------------------- full-score context parallelism
