@@ -181,7 +181,24 @@ Phases (any failure exits non-zero before the last line is printed):
        g. ``export_checkpoint_from`` on the step-4 checkpoint: the reference
           ``.pt`` loads back bit-equal; ``parity_vs_reference_torch``
           exports its f32 denoiser (finite) and passes against itself;
-     10c-10g run tester.T=8 (cut from 35 for the time budget);
+       h. ``NPROC=2 scripts/training_torch.sh`` (torch.distributed.run, two
+          ranks sharing the card over gloo) trains 2 steps at exp.batch 2 on
+          phase 6e's corpus: exit 0, rank 0 writes 22k_8s-2.pt, every
+          ``it N loss`` line finite, scripts/train_report_torch.py reads them;
+       i. ``scripts/testing_torch.sh`` with CKPT empty in 10h's MODEL_DIR
+          (the latest-checkpoint scan loads 10h's checkpoint): no "no
+          checkpoint found", every wav and metrics.json finite, observed
+          samples within one 16-bit step farther than ``hann_size`` from the
+          gap, the gap non-zero; the mode's seconds and RTF;
+       j. ``scripts/testing_shortgaps_torch.sh`` with CKPT a reference
+          ``.pt`` of the 44.1 kHz flagship on phase 5b's seeded weights, on
+          two 44.1 kHz files with a ``.npy`` mask each (four 25 ms gaps):
+          the same checks;
+     10h-10j run the launchers as a user runs them, one process after
+     another, in a thread of this script beside 8c-8d and 10b-10g; their
+     kernel launches happen in their own processes and are not counted in
+     the kernels line; 10c-10j run tester.T=8 (cut from 35, and 70 for the
+     short gaps, for the time budget);
   9. each phase's seconds, the ``kernels`` JSON line (phase 10's launches
      and errors included), then the device JSON line.
 
@@ -193,6 +210,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import sys
 import time
@@ -215,7 +233,9 @@ PHASE_S = {}               # wall seconds of each phase of main()
 
 
 def log(*a):
-    print(*a, flush=True)
+    # one write a line: 10h-10j's checks log from a thread of their own
+    sys.stdout.write(" ".join(map(str, a)) + "\n")
+    sys.stdout.flush()
 
 
 @contextlib.contextmanager
@@ -2954,6 +2974,263 @@ def phase_export(torch, fa, np, work, ck4, launches):
     return rec
 
 
+# ----------------------------------------------------- the launchers (10h-10j)
+
+# the config groups of scripts/testing_torch.sh and testing_shortgaps_torch.sh
+# (tests/test_torch_launchers.py holds them to the JAX launchers'): this
+# process composes them to know the masks and the sizes the launchers ran
+LONG_GAP = ["dset=maestro_allyears", "exp=maestro22k_8s", "network=cqtdiff_plus_22k",
+            "tester=inpainting_tester"]
+SHORT_GAP = ["dset=inpainting_mask_dataset", "exp=musicnet44k_4s", "network=cqtdiff_plus_44k",
+             "tester=inpainting_tester_shortgaps"]
+LAUNCH_OV = []             # appended to every launcher run (a CPU rehearsal: a tiny net)
+SHORT_GAPS_MS = 25         # four gaps a file in 10j's masks
+LAUNCHED = []              # the launchers' processes, stopped by main() on any failure
+
+
+class Beside:
+    """``fn()`` in a thread beside this process's phases; ``join()`` returns
+    its result or raises its failure."""
+
+    def __init__(self, fn):
+        import threading
+        self.out, self.err = None, None
+
+        def run():
+            try:
+                self.out = fn()
+            except BaseException as e:        # a failed check is a SystemExit
+                self.err = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def join(self):
+        self.thread.join()
+        if self.err is not None:
+            raise self.err
+        return self.out
+
+
+def stop(p, grace=30):
+    """End a launcher's process and, under torch.distributed.run, its ranks
+    (each in a process group of its own): SIGTERM, on which the agent stops its
+    ranks, then SIGKILL for what is left."""
+    import signal
+    import subprocess
+    if p.poll() is not None:
+        return
+    kids = []
+    for d in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                if int(f.read().rsplit(")", 1)[1].split()[1]) == p.pid:
+                    kids.append(int(d))
+        except (OSError, IndexError, ValueError):
+            pass
+    p.terminate()
+    try:
+        p.wait(timeout=grace)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+    for pid in kids:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def launcher(work, name, script, args, timeout=600, **knobs):
+    """``scripts/<script> args`` as a user runs it, ``knobs`` (MODEL_DIR,
+    CKPT, NPROC, ...) in its environment and PYTHON this interpreter, its
+    output in ``work/<name>.log``. Fails if it exits non-zero or outlives
+    ``timeout``; returns (wall seconds, log path, output)."""
+    import subprocess
+    here = os.path.dirname(os.path.abspath(__file__))
+    knobs = {k: str(v) for k, v in knobs.items()}
+    # beside this process's work on the same card: expandable segments keep
+    # each process's reserved memory near what it uses
+    env = dict(os.environ, PYTHON=sys.executable,
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True", **knobs)
+    log(f"== phase {name} (started): {' '.join(f'{k}={v}' for k, v in knobs.items())} "
+        f"scripts/{script} {' '.join(args)}")
+    log_path = os.path.join(work, f"{name}.log")
+    t0 = time.time()
+    with open(log_path, "w") as out:
+        p = subprocess.Popen(["bash", os.path.join(here, "scripts", script), *args], env=env,
+                             stdout=out, stderr=subprocess.STDOUT)
+    LAUNCHED.append(p)
+    try:
+        p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        log(f"{name}: scripts/{script} outlived {timeout} s")
+    finally:
+        stop(p)
+    wall = time.time() - t0
+    text = open(log_path).read()
+    if p.returncode != 0:
+        log(text[-8000:])
+        fail(f"{name}: scripts/{script} exited {p.returncode}")
+    return wall, log_path, text
+
+
+def mode_seconds(text, mode):
+    """The seconds the tester printed for ``mode`` (``[tester] mode: S s``)."""
+    m = re.search(rf"^\[tester\] {mode}: ([\d.]+) s$", text, re.M)
+    if not m:
+        fail(f"no '[tester] {mode}: ... s' line")
+    return float(m.group(1))
+
+
+def check_inpainted(np, mode_dir, masks, hann):
+    """An evaluation launcher's outputs in ``mode_dir``: every wav finite;
+    for each file (``masks``: stem -> [L] mask, 0 in the gaps) the
+    reconstruction equal to the original within one 16-bit step farther
+    than ``hann`` from a gap, and non-zero in the gaps; every metrics.json
+    finite."""
+    from aid_tpu_torch.data import audio_io
+    wavs = [os.path.join(d, f) for d, _, fs in os.walk(mode_dir) for f in fs if f.endswith(".wav")]
+    finite_wavs = all(bool(np.isfinite(audio_io.read(w)[0]).all()) for w in wavs)
+    files = {}
+    for stem, mask in masks.items():
+        orig, rec = (audio_io.read(os.path.join(mode_dir, sub, stem + ".wav"))[0]
+                     for sub in ("original", "reconstructed"))
+        gap = mask == 0
+        near = np.convolve(gap.astype(np.float32), np.ones(2 * hann + 1), "same") > 0
+        files[stem] = {"observed_max_abs_err": float(np.abs(rec[~near] - orig[~near]).max()),
+                       "gap_rms": float(np.sqrt(np.mean(rec[gap] ** 2))),
+                       "gap_samples": int(gap.sum())}
+    ok = (finite_wavs and len(wavs) == 3 * len(masks) and check_metrics(mode_dir) == 1
+          and all(f["observed_max_abs_err"] <= LSB and f["gap_rms"] > 0 for f in files.values()))
+    return ok, {"wavs": len(wavs), "wavs_finite": finite_wavs, "files": files,
+                "observed_tol": LSB, "hann_size": hann}
+
+
+def newest_mode_dir(md, mode):
+    runs = sorted(os.listdir(os.path.join(md, "test")))
+    return os.path.join(md, "test", runs[-1], mode)
+
+
+def launch_training(work, card):
+    """10h: NPROC=2 scripts/training_torch.sh, two steps on phase 6e's corpus:
+    two ranks share the card over gloo under torch.distributed.run."""
+    corpus, md = os.path.join(work, "maestro"), os.path.join(work, "launch")
+    wall, log_path, text = launcher(
+        work, "10h", "training_torch.sh",
+        train_overrides(corpus, md, "exp.batch=2", "exp.total_its=2", "logging.log_interval=1",
+                        "logging.save_interval=2", "logging.heavy_log_interval=1000000",
+                        *LAUNCH_OV),
+        NPROC=2, MODEL_DIR=md, MASTER_PORT=free_port())
+    # the ranks write to one file unbuffered (torch.distributed.run starts
+    # them with -u), so a line of one rank can hold the end of another's:
+    # the checks find their lines anywhere in the text
+    lines = re.findall(r"\bit (\d+)\s+loss ([-+\d.eEnaif]+)\s+gnorm ([\d.naif]+)", text)
+    rows, _ = load_script("scripts/train_report_torch.py").parse(log_path)
+    said = [ln for ln in text.splitlines() if "[mesh]" in ln or "[setup]" in ln]
+    rec = {"check": "launcher", "phase": "10h", "script": "scripts/training_torch.sh",
+           "knobs": {"NPROC": 2}, "wall_s": wall, "it_loss_gnorm": lines,
+           "train_report_rows": [[r[0], r[1]] for r in rows],
+           "checkpoint": os.path.exists(os.path.join(md, "22k_8s-2.pt")), "ranks_said": said,
+           "card": card}
+    log(json.dumps(rec))
+    if not (rec["checkpoint"] and [int(i) for i, _, _ in lines] == [1, 2]
+            and all(finite(loss, g) for _, loss, g in lines)
+            and rows and {(r[0], r[1]) for r in rows} <= {(int(i), float(x)) for i, x, _ in lines}
+            and text.count("backend gloo") == 2 and text.count("shared-card mode") == 2):
+        fail(f"10h, the training launcher: {rec}")
+    return md, rec
+
+
+def launch_long_gap(np, work, md, card):
+    """10i: scripts/testing_torch.sh with CKPT empty in 10h's MODEL_DIR: the
+    latest-checkpoint scan loads 10h's step-2 checkpoint."""
+    from types import SimpleNamespace
+    from aid_tpu_torch.testing.tester import Tester
+    from aid_tpu_torch.utils.config import compose
+    corpus = os.path.join(work, "maestro")
+    wall, _, text = launcher(work, "10i", "testing_torch.sh",
+                             [f"dset.path={corpus}", f"tester.T={TOOLS_T}", *LAUNCH_OV],
+                             MODEL_DIR=md, CKPT="")
+    args = compose(overrides=[*LONG_GAP, *LAUNCH_OV])
+    L, fs = int(args.exp.audio_len), int(args.exp.sample_rate)
+    mask = Tester.prepare_mask(SimpleNamespace(t=args.tester, audio_len=L, fs=fs))[0]
+    ok, files = check_inpainted(np, newest_mode_dir(md, "inpainting"), {"test_piece": mask},
+                                int(args.tester.data_consistency.hann_size))
+    seconds = mode_seconds(text, "inpainting")
+    rec = {"check": "launcher", "phase": "10i", "script": "scripts/testing_torch.sh",
+           "knobs": {"CKPT": ""}, "wall_s": wall, "T": TOOLS_T,
+           "no_checkpoint_warning": "no checkpoint found" in text,
+           "inpainting_s": seconds, "inpainting_rtf": L / fs / seconds, **files, "card": card}
+    log(json.dumps(rec))
+    if not ok or rec["no_checkpoint_warning"]:
+        fail(f"10i, the long-gap launcher: {rec}")
+    return rec
+
+
+def launch_short_gap(np, work, card):
+    """10j: scripts/testing_shortgaps_torch.sh with an explicit CKPT (a
+    reference-layout .pt of the 44.1 kHz flagship on phase 5b's seeded
+    weights) on two 44.1 kHz files, each with a mask of four 25 ms gaps."""
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.data import audio_io
+    from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
+    from aid_tpu_torch.utils import checkpoint_torch
+    from aid_tpu_torch.utils.config import compose
+    d = os.path.join(work, "shortgaps")
+    args = compose(overrides=[*SHORT_GAP, *LAUNCH_OV])
+    L, fs = int(args.exp.audio_len), int(args.exp.sample_rate)
+    gap = int(SHORT_GAPS_MS / 1000 * fs)
+    masks = {}
+    for sub in ("audio", "masks"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    for i in range(2):
+        stem = f"clip_{i}"
+        audio_io.write(os.path.join(d, "audio", stem + ".wav"), music(np, L + fs // 10, fs, 40 + i),
+                       fs)
+        mask = np.ones(L, np.float32)
+        for f in (0.2, 0.4, 0.6, 0.8):
+            s = int(f * L) + 997 * i
+            mask[s:s + gap] = 0.0
+        np.save(os.path.join(d, "masks", stem + ".npy"), mask)
+        masks[stem] = mask
+    # phase 5b's weights: the network as from_config builds it, then
+    # init_weights(0, MAIN_SCALE) (a CPU generator: the same on any device)
+    net = tsetup.setup_network(args, device="cpu").init_weights(0, gate_scale=MAIN_SCALE)
+    pt = checkpoint_torch.export_checkpoint(os.path.join(d, "musicnet44k_seeded.pt"), net)
+    del net
+    md = os.path.join(d, "md")
+    wall, _, text = launcher(
+        work, "10j", "testing_shortgaps_torch.sh",
+        [f"tester.T={TOOLS_T}", f"dset.test.path={os.path.join(d, 'audio')}",
+         f"dset.test.mask_path={os.path.join(d, 'masks')}", "dset.test.num_samples=2",
+         *LAUNCH_OV], MODEL_DIR=md, CKPT=pt)
+    ok, files = check_inpainted(np, newest_mode_dir(md, "inpainting_shortgaps"), masks,
+                                int(args.tester.data_consistency.hann_size))
+    seconds = mode_seconds(text, "inpainting_shortgaps")
+    rec = {"check": "launcher", "phase": "10j", "script": "scripts/testing_shortgaps_torch.sh",
+           "knobs": {"CKPT": os.path.basename(pt)}, "wall_s": wall, "T": TOOLS_T,
+           "no_checkpoint_warning": "no checkpoint found" in text,
+           "inpainting_shortgaps_s": seconds,
+           "inpainting_shortgaps_rtf": len(masks) * L / fs / seconds, **files, "card": card}
+    log(json.dumps(rec))
+    if not ok or rec["no_checkpoint_warning"]:
+        fail(f"10j, the short-gap launcher: {rec}")
+    return rec
+
+
+def phase_launchers(np, work, card):
+    """10h-10j in ``work`` (phase 6e's corpus is there), each launcher a
+    process of its own beside this process's phases; returns their
+    records."""
+    t0 = time.time()
+    md, train = launch_training(work, card)
+    out = {"10h": train, "10i": launch_long_gap(np, work, md, card),
+           "10j": launch_short_gap(np, work, card)}
+    PHASE_S["10h-j"] = time.time() - t0
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -3031,16 +3308,25 @@ def main():
                 torch, fa, np, work, card, answers["a_centre_gap_1500ms"], request_b,
                 beside_steps=learning, beside_scores=evaluation_ab)
         demos.update(start_demo(work, "spectrogram"))    # beside 8c-8d and 10b-10d
+        # 10h-10j: the shell launchers, one process after another, beside
+        # 8c-8d and 10b-10g
+        launchers = Beside(lambda: phase_launchers(np, work, card))
         with phase_time("8c-d"):
             test_launches, testing = phase_testing_c(torch, fa, np, work, card, testing_ab)
         with phase_time("10b-g"):
             tools_launches, tools_err = phase_tools(torch, fa, np, work, card, gate, demos)
+        with phase_time("10h-j wait"):
+            launched = launchers.join()
     finally:
         for _, _, _, p in demos.values():          # none outlives the script
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        for p in LAUNCHED:
+            stop(p)
         shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({"launchers": {k: {f: v[f] for f in v if f.endswith(("_s", "_rtf"))}
+                                  for k, v in launched.items()}, "card": card}))
     log(json.dumps({"testing": {**testing, "card": card}}))
     log(json.dumps({"launches_by_path": {"serving": launches, "serving_44k": launches_44k,
                                          "training": train_launches,

@@ -61,7 +61,8 @@ def test_new_modules_are_scanned():
             "aid_tpu_torch/utils/io.py", "examples/demo_inpainting_torch.py",
             "scripts/e2e_smoke_torch.py", "scripts/eval_checkpoints_torch.py",
             "scripts/eval_gap_sweep_torch.py", "scripts/make_synth_corpus_torch.py",
-            "scripts/parity_vs_reference_torch.py", "scripts/serve_bench_torch.py"} <= names
+            "scripts/parity_vs_reference_torch.py", "scripts/serve_bench_torch.py",
+            "scripts/train_report_torch.py"} <= names
 
 
 def test_the_orbax_converter_is_jax_side_only():

@@ -321,12 +321,46 @@ def test_e2e_smoke_run_on_the_cpu(tmp_path, capsys):
     log.write_text(capsys.readouterr().out)
     rows, _ = _load_script("train_report").parse(str(log))
     assert [r[0] for r in rows] == [1] and _finite(rows[0][1], rows[0][3])
+    # ... and the port's own copy returns the same rows on this finite log
+    assert _load_script("train_report_torch").parse(str(log)) == (rows, _)
     assert res["its"] == 2 and res["device"] == "cpu"
     assert _finite(res["snr_untrained_db"], res["snr_trained_db"], res["lsd_gap_ratio"],
                    res["s_per_it"])
     assert res["ok"] == e2e.gate(res["snr_gain_db"], res["lsd_gap_ratio"], 4.0, 0.95)
     assert os.path.exists(res["checkpoint"]) and res["rec"].shape == (1, 2048)
     assert (tmp_path / "reconstructed.wav").exists()
+
+
+def _trainer_line(it, loss, gnorm, extra=""):
+    """One interval line as the port's trainer prints it
+    (aid_tpu_torch/training/trainer.py, ``Trainer.training_loop``)."""
+    return f"it {it}  loss {loss:.5f}  gnorm {gnorm:.3f}{extra}  {0.5 * it:.2f}s"
+
+
+def test_train_report_torch_keeps_diverged_lines(tmp_path, capsys, monkeypatch):
+    nan, inf = float("nan"), float("inf")
+    log = tmp_path / "train.log"
+    log.write_text("\n".join([
+        _trainer_line(1, 0.81234, 1.5),
+        _trainer_line(2, 0.51234, 1.25, "  top dec.0.conv:3.21e-01"),
+        "[trainer] checkpoint 22k_8s-2.pt",
+        _trainer_line(3, nan, nan, "  skip 100%"),
+        _trainer_line(4, inf, inf),
+        _trainer_line(5, -inf, nan)]) + "\n")
+    rows, events = _load_script("train_report_torch").parse(str(log))
+    assert [r[0] for r in rows] == [1, 2, 3, 4, 5]
+    assert rows[0][1:] == (0.81234, "1.500", 0.5, 0) and rows[1][1] == 0.51234
+    assert math.isnan(rows[2][1]) and rows[2][2] == "nan" and rows[2][4] == 100
+    assert rows[3][1] == inf and rows[3][2] == "inf" and rows[4][1] == -inf
+    assert events == ["[trainer] checkpoint 22k_8s-2.pt"]
+    # the JAX package's script reads only the finite lines of the same log
+    jax_rows, jax_events = _load_script("train_report").parse(str(log))
+    assert jax_rows == rows[:2] and jax_events == events
+    # the report prints every row, the diverged ones included
+    monkeypatch.setattr(sys, "argv", ["train_report_torch.py", str(log), "1"])
+    _load_script("train_report_torch").main()
+    out = capsys.readouterr().out
+    assert "5 intervals" in out and "| 3 | nan | nan | 100 |" in out and "| 4 | inf | inf |" in out
 
 
 @pytest.mark.parametrize("gain,ratio,ok", [(4.0, 0.95, True), (5.97, 0.869, True),
