@@ -155,11 +155,22 @@ class HeunProgram:
         self.i = torch.zeros_like(self.steps[0])
         self.records: Optional[Record] = None     # [T, B, L] each, made by the first step
         self.ops = task.ops({k: self.bufs[k] for k in task.inputs})
-        self.score = make_score_fn(p, cfg, denoise, y=self.ops.y,
+        # the denoiser calls of the steps, counted (the closure holds a
+        # list, never the program, which is freed by reference counting)
+        calls = self._calls = [0]
+
+        def counted(x, t):
+            calls[0] += 1
+            return denoise(x, t)
+
+        self.score = make_score_fn(p, cfg, counted, y=self.ops.y,
                                    degradation=self.ops.degradation, proj=self.ops.proj,
                                    hpf=hpf)
         self.graphs = None
-        self.scores = {"body": 2 if cfg.order == 2 else 1, "last": 1}   # per step
+        # denoiser calls per step: the order's, until a capture counts those
+        # its graph records
+        self.scores = {"body": 2 if cfg.order == 2 else 1, "last": 1}
+        self.replayed_scores = 0                   # denoiser calls the replays ran
         self.launches = {"body": 0, "last": 0}     # Triton launches per replay
         self.pool_bytes = 0
         self.capture_s = 0.0
@@ -213,8 +224,10 @@ class HeunProgram:
         warm_up([fn for _, fn in steps], stream)
         graphs = {}
         for name, fn in steps:
+            n0 = self._calls[0]
             graphs[name], _, self.launches[name], peak = capture(
                 fn, stream, pool, f"the {self.task} program's '{name}' step at {self.shape}")
+            self.scores[name] = self._calls[0] - n0
             self.pool_bytes = max(self.pool_bytes, peak)
         torch.cuda.synchronize(dev)
         self.graphs = graphs
@@ -226,6 +239,7 @@ class HeunProgram:
             return
         self.graphs[name].replay()
         self.replays += 1
+        self.replayed_scores += self.scores[name]
         fa.add_replayed_launches(self.launches[name])
 
     # ------------------------------------------------------------------- run
@@ -286,7 +300,8 @@ class HeunProgram:
         return self.launches["body"] * (self.cfg.T - 1) + self.launches["last"]
 
     def scores_per_run(self) -> int:
-        """Score (denoiser) evaluations of one ``run``."""
+        """Score (denoiser) evaluations of one ``run`` (on CUDA, as its
+        captures counted them)."""
         return self.scores["body"] * (self.cfg.T - 1) + self.scores["last"]
 
     def report(self) -> dict:
@@ -297,4 +312,5 @@ class HeunProgram:
                 "static_bytes": self.static_bytes(), "pool_bytes": self.pool_bytes,
                 "scores": dict(self.scores), "scores_per_run": self.scores_per_run(),
                 "launches_per_replay": dict(self.launches),
-                "launches_per_run": self.launches_per_run(), "replays": self.replays}
+                "launches_per_run": self.launches_per_run(), "replays": self.replays,
+                "replayed_scores": self.replayed_scores}

@@ -199,6 +199,25 @@ Phases (any failure exits non-zero before the last line is printed):
      kernel launches happen in their own processes and are not counted in
      the kernels line; 10c-10j run tester.T=8 (cut from 35, and 70 for the
      short gaps, for the time budget);
+  11. the measuring entry points, each a process of its own as a user runs
+     it; their kernel launches happen in those processes and are not
+     counted in the kernels line:
+       a. alone on the card, after 10h-10j's join: ``python bench_torch.py``
+          with BENCH_SUITE=headline, BENCH_REPS=1 (the 22 kHz flagship,
+          bf16, BENCH_BATCH 2, T=35: a finite RTF, 69 denoiser calls a
+          trajectory as counted, 2 rows, a finite output), then with
+          BENCH_SUITE=full at tester.T=4 (cut from 35 and 70: the plumbing
+          of every leg): shortgaps_rtf, uncond_rtf and rtf_44k present and
+          positive, no ``*_error``;
+       b. beside 8c-8d and 10b-10g, after 10j: BENCH_DEVICES=2 under
+          torch.distributed.run (two ranks sharing the card over gloo,
+          headline at T=4: arithmetic, not scaling): one result line with
+          ``"devices": 2``;
+       c. alone on the card, after 11a: ``TRAIN_BENCH_STEPS=3
+          scripts/bench_train_torch.py`` at the flagship (batch 4, f32,
+          remat, TF32 convs as the training default): a finite ms a step;
+       d. host only, beside 11a and 11c: ``scripts/bench_loader_torch.py
+          --files 4 --secs 30 --batches 10``: its three ``num_workers=`` rows;
   9. each phase's seconds, the ``kernels`` JSON line (phase 10's launches
      and errors included), then the device JSON line.
 
@@ -3041,10 +3060,10 @@ def stop(p, grace=30):
             pass
 
 
-def launcher(work, name, script, args, timeout=600, **knobs):
-    """``scripts/<script> args`` as a user runs it, ``knobs`` (MODEL_DIR,
-    CKPT, NPROC, ...) in its environment and PYTHON this interpreter, its
-    output in ``work/<name>.log``. Fails if it exits non-zero or outlives
+def process(work, name, cmd, what, timeout=600, **knobs):
+    """``cmd`` (run from the checkout's root) as a user runs it, ``knobs``
+    in its environment and PYTHON this interpreter, its output in
+    ``work/<name>.log``. Fails if it exits non-zero or outlives
     ``timeout``; returns (wall seconds, log path, output)."""
     import subprocess
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3054,25 +3073,32 @@ def launcher(work, name, script, args, timeout=600, **knobs):
     env = dict(os.environ, PYTHON=sys.executable,
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True", **knobs)
     log(f"== phase {name} (started): {' '.join(f'{k}={v}' for k, v in knobs.items())} "
-        f"scripts/{script} {' '.join(args)}")
+        f"{what}")
     log_path = os.path.join(work, f"{name}.log")
     t0 = time.time()
     with open(log_path, "w") as out:
-        p = subprocess.Popen(["bash", os.path.join(here, "scripts", script), *args], env=env,
-                             stdout=out, stderr=subprocess.STDOUT)
+        p = subprocess.Popen(cmd, env=env, cwd=here, stdout=out, stderr=subprocess.STDOUT)
     LAUNCHED.append(p)
     try:
         p.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
-        log(f"{name}: scripts/{script} outlived {timeout} s")
+        log(f"{name}: {what} outlived {timeout} s")
     finally:
         stop(p)
     wall = time.time() - t0
     text = open(log_path).read()
     if p.returncode != 0:
         log(text[-8000:])
-        fail(f"{name}: scripts/{script} exited {p.returncode}")
+        fail(f"{name}: {what} exited {p.returncode}")
     return wall, log_path, text
+
+
+def launcher(work, name, script, args, timeout=600, **knobs):
+    """``scripts/<script> args`` as a user runs it, ``knobs`` (MODEL_DIR,
+    CKPT, NPROC, ...) in its environment (``process``)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return process(work, name, ["bash", os.path.join(here, "scripts", script), *args],
+                   f"scripts/{script} {' '.join(args)}", timeout, **knobs)
 
 
 def mode_seconds(text, mode):
@@ -3231,6 +3257,129 @@ def phase_launchers(np, work, card):
     return out
 
 
+# ------------------------------------------------------------------- phase 11
+BENCH_CUT = "tester.T=4"       # 11a's full suite and 11b: the plumbing, at a cut depth
+HEADLINE_SCORES = 69           # denoiser calls of a T=35, order 2 trajectory
+TRAIN_BENCH_STEPS = 3
+
+
+def bench_run(work, name, ranks=0, timeout=600, **knobs):
+    """``python bench_torch.py`` with ``knobs`` (under torch.distributed.run
+    with ``ranks`` ranks when above 0); returns (wall seconds, its detail
+    lines by leg, its result lines, the output)."""
+    cmd = ["bench_torch.py"]
+    if ranks:
+        cmd = ["-m", "torch.distributed.run", "--nproc-per-node", str(ranks), "--master-port",
+               str(free_port()), *cmd]
+    wall, _, text = process(work, name, [sys.executable, *cmd], f"python {' '.join(cmd)}",
+                            timeout, **knobs)
+    rows = []
+    for ln in text.splitlines():
+        if ln.startswith("{"):
+            try:
+                rows.append(json.loads(ln))
+            except ValueError:
+                pass
+    return (wall, {r["leg"]: r for r in rows if "leg" in r},
+            [r for r in rows if "metric" in r], text)
+
+
+def bench_record(phase, wall, legs, lines, card, **knobs):
+    rec = {"check": "bench", "phase": phase, "knobs": knobs, "wall_s": wall,
+           "line": lines[-1] if lines else None,
+           "legs": {k: {f: v[f] for f in ("batch", "rows_per_rank", "T", "scores_per_trajectory",
+                                          "rep_s", "finite", "capture_s", "memory_bytes")}
+                    for k, v in legs.items()}, "card": card}
+    log(json.dumps(rec))
+    return rec
+
+
+def phase_bench_alone(work, card):
+    """11a: ``bench_torch.py``'s headline at full width and depth (22 kHz,
+    bf16, BENCH_BATCH 2, T=35), then its full suite at T=4 (the plumbing of
+    every leg), each in its own process with nothing else on the card."""
+    wall, legs, lines, _ = bench_run(work, "11a_headline", BENCH_SUITE="headline",
+                                     BENCH_REPS=1)
+    head = bench_record("11a", wall, legs, lines, card, BENCH_SUITE="headline", BENCH_REPS=1)
+    h = legs.get("headline", {})
+    if not (len(lines) == 1 and finite(lines[0]["value"]) and lines[0]["value"] > 0
+            and h.get("scores_per_trajectory") == HEADLINE_SCORES and h.get("batch") == 2
+            and h.get("T") == 35 and h.get("finite")):
+        fail(f"11a, the bench's headline: {head}")
+    wall, legs, lines, _ = bench_run(work, "11a_full", BENCH_SUITE="full", BENCH_REPS=1,
+                                     BENCH_OVERRIDES=BENCH_CUT)
+    full = bench_record("11a", wall, legs, lines, card, BENCH_SUITE="full", BENCH_REPS=1,
+                        BENCH_OVERRIDES=BENCH_CUT)
+    ex = (lines[-1].get("extras", {}) if lines else {})
+    if not (set(ex) == {"shortgaps_rtf", "uncond_rtf", "rtf_44k"}
+            and all(finite(v) and v > 0 for v in ex.values())
+            and sorted(legs) == ["44k", "headline", "shortgaps", "uncond"]
+            and all(v["finite"] for v in legs.values())):
+        fail(f"11a, the bench's full suite: {full}")
+    return {"headline": head, "full": full}
+
+
+def phase_bench_train(work, card):
+    """11c: ``scripts/bench_train_torch.py`` at the flagship (batch 4, f32,
+    remat, TF32 convs as the training default), TRAIN_BENCH_STEPS steps,
+    alone on the card."""
+    wall, _, text = process(work, "11c", [sys.executable, "scripts/bench_train_torch.py",
+                                          "network.compute_dtype=float32"],
+                            "scripts/bench_train_torch.py network.compute_dtype=float32",
+                            TRAIN_BENCH_STEPS=TRAIN_BENCH_STEPS)
+    first = re.search(r"^first step \(capture\): ([\d.]+)s$", text, re.M)
+    step = re.search(r"^train step: ([\d.a-z]+) ms  \(global batch (\d+), ([\d.]+) s "
+                     r"audio/step -> ([\d.a-z]+)x realtime\)$", text, re.M)
+    rec = {"check": "bench_train", "phase": "11c", "wall_s": wall,
+           "steps": TRAIN_BENCH_STEPS, "first_step_s": first and float(first.group(1)),
+           "step_ms": step and float(step.group(1)),
+           "global_batch": step and int(step.group(2)),
+           "x_realtime": step and float(step.group(4)), "card": card}
+    log(json.dumps(rec))
+    if not (first and step and finite(rec["step_ms"]) and rec["step_ms"] > 0
+            and rec["global_batch"] == TRAIN_BATCH):
+        fail(f"11c, the training bench: {rec}")
+    return rec
+
+
+def phase_bench_dp(work, card):
+    """11b, beside this process's phases: the bench's dp mode at two ranks
+    sharing the card over gloo (the headline at T=4: arithmetic, not
+    scaling)."""
+    t0 = time.time()
+    wall, legs, lines, text = bench_run(work, "11b", ranks=2, BENCH_DEVICES=2,
+                                        BENCH_SUITE="headline", BENCH_REPS=1,
+                                        BENCH_OVERRIDES=BENCH_CUT)
+    dp = bench_record("11b", wall, legs, lines, card, BENCH_DEVICES=2, BENCH_SUITE="headline",
+                      BENCH_REPS=1, BENCH_OVERRIDES=BENCH_CUT)
+    if not (len(lines) == 1 and lines[0].get("devices") == 2 and finite(lines[0]["value"])
+            and lines[0]["value"] > 0 and text.count("backend gloo") == 2
+            and legs.get("headline", {}).get("finite")):
+        fail(f"11b, the bench's dp mode: {dp}")
+    PHASE_S["11b"] = time.time() - t0
+    return dp
+
+
+def phase_bench_loader(work, card):
+    """11d, host only: the loader's bench."""
+    t0 = time.time()
+    args = ["--files", "4", "--secs", "30", "--batches", "10"]
+    wall, _, text = process(work, "11d", [sys.executable, "scripts/bench_loader_torch.py",
+                                          *args],
+                            f"scripts/bench_loader_torch.py {' '.join(args)}")
+    rows = re.findall(r"^num_workers=(\d):\s+([\d.]+) batches/s\s+([\d.]+) segments/s\s+"
+                      r"([\d.]+)x budget  \[(OK|BOTTLENECK)\]$", text, re.M)
+    loader = {"check": "bench_loader", "phase": "11d", "wall_s": wall, "args": args,
+              "rows": [{"num_workers": int(r[0]), "batches_per_s": float(r[1]),
+                        "segments_per_s": float(r[2]), "x_budget": float(r[3]),
+                        "verdict": r[4]} for r in rows], "card": card}
+    log(json.dumps(loader))
+    if [r[0] for r in rows] != ["0", "2", "4"]:
+        fail(f"11d, the loader bench: {loader}")
+    PHASE_S["11d"] = time.time() - t0
+    return loader
+
+
 def main():
     import numpy as np
     import torch
@@ -3310,13 +3459,23 @@ def main():
         demos.update(start_demo(work, "spectrogram"))    # beside 8c-8d and 10b-10d
         # 10h-10j: the shell launchers, one process after another, beside
         # 8c-8d and 10b-10g
-        launchers = Beside(lambda: phase_launchers(np, work, card))
+        # then 11b, the bench's dp mode
+        launchers = Beside(lambda: (phase_launchers(np, work, card),
+                                    {"11b": phase_bench_dp(work, card)}))
         with phase_time("8c-d"):
             test_launches, testing = phase_testing_c(torch, fa, np, work, card, testing_ab)
         with phase_time("10b-g"):
             tools_launches, tools_err = phase_tools(torch, fa, np, work, card, gate, demos)
         with phase_time("10h-j wait"):
-            launched = launchers.join()
+            launched, benches = launchers.join()
+        # 11a and 11c: the benches alone on the card; 11d (host only)
+        # beside them
+        loader = Beside(lambda: phase_bench_loader(work, card))
+        with phase_time("11a"):
+            benches.update(phase_bench_alone(work, card))
+        with phase_time("11c"):
+            benches["11c"] = phase_bench_train(work, card)
+        benches["11d"] = loader.join()
     finally:
         for _, _, _, p in demos.values():          # none outlives the script
             if p.poll() is None:
@@ -3327,6 +3486,15 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({"launchers": {k: {f: v[f] for f in v if f.endswith(("_s", "_rtf"))}
                                   for k, v in launched.items()}, "card": card}))
+    log(json.dumps({"benches": {
+        "headline_rtf": benches["headline"]["line"]["value"],
+        "full_suite_T4": benches["full"]["line"],
+        "dp2_T4": benches["11b"]["line"], "train_step_ms": benches["11c"]["step_ms"],
+        "loader_segments_per_s": [r["segments_per_s"] for r in benches["11d"]["rows"]],
+        "walls_s": {"11a_headline": benches["headline"]["wall_s"],
+                    "11a_full": benches["full"]["wall_s"], "11b": benches["11b"]["wall_s"],
+                    "11c": benches["11c"]["wall_s"], "11d": benches["11d"]["wall_s"]}},
+        "card": card}))
     log(json.dumps({"testing": {**testing, "card": card}}))
     log(json.dumps({"launches_by_path": {"serving": launches, "serving_44k": launches_44k,
                                          "training": train_launches,

@@ -148,6 +148,9 @@ def test_tiny_program_graphs_equal_eager(cuda):
     torch.cuda.synchronize()
     assert list(s._programs.values()) == [prog]
     assert prog.graphs is not None and prog.replays == s.cfg.T
+    # denoiser calls counted where the captures recorded them, order 2
+    assert prog.scores == {"body": 2, "last": 1}
+    assert prog.replayed_scores == prog.scores_per_run() == 2 * (s.cfg.T - 1) + 1
     assert fa.launch_count() == prog.launches_per_run() > 0
     assert prog.memory_bytes() > prog.static_bytes()
     smooth = s._smooth_mask(mask)

@@ -13,11 +13,11 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aid_tpu")
-# the port, chip_smoke.py, the port's scripts and demo, and the ranks the
+# the port, chip_smoke.py, its bench, the port's scripts and demo, and the ranks the
 # parallel tests spawn (they must not start JAX beside the test process's
 # eight fake devices)
 SOURCES = (sorted((ROOT / "aid_tpu_torch").rglob("*.py"))
-           + [ROOT / "chip_smoke.py", ROOT / "tests/torch_dist_worker.py",
+           + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tests/torch_dist_worker.py",
               ROOT / "examples/demo_inpainting_torch.py"]
            + sorted((ROOT / "scripts").glob("*_torch.py")))
 
@@ -62,7 +62,8 @@ def test_new_modules_are_scanned():
             "scripts/e2e_smoke_torch.py", "scripts/eval_checkpoints_torch.py",
             "scripts/eval_gap_sweep_torch.py", "scripts/make_synth_corpus_torch.py",
             "scripts/parity_vs_reference_torch.py", "scripts/serve_bench_torch.py",
-            "scripts/train_report_torch.py"} <= names
+            "scripts/train_report_torch.py", "bench_torch.py", "scripts/bench_train_torch.py",
+            "scripts/bench_loader_torch.py"} <= names
 
 
 def test_the_orbax_converter_is_jax_side_only():
