@@ -1,0 +1,10 @@
+"""kernel: the Triton norm x adaLN x GELU forward's share of its HBM bytes
+bound in the traced steps, remat's recomputed forwards included (training
+cells)."""
+from work import peaks
+
+UNIT = "%"
+
+
+def read(ctx):
+    return peaks.fused_roofline(ctx) if ctx["family"] == "train" else None
