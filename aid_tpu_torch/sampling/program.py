@@ -38,10 +38,17 @@ same buffers: its result is ``heun_sample``'s bit for bit.
 Kernel launches: the Triton kernel's wrapper counts the launches a capture
 records apart from real ones (``fused_adaln.captured_count``); each replay
 adds what its graph recorded to the launch count.
+
+Tracing (``utils.trace``): the spans ``program.build`` (the whole build;
+``program.warm_up`` and ``program.capture`` inside it, whose seconds
+``report()`` gives as ``capture_s``, ``warm_up_s`` and ``graph_capture_s``),
+``heun.run`` around ``run`` and ``heun.body`` / ``heun.last`` around each
+step's slot copies and replay; inside the graphs the phase marks
+``heun.step`` (the whole step) and ``heun.denoise`` (each denoiser forward),
+in ``marks["body"]`` and ``marks["last"]``.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -51,6 +58,7 @@ from aid_tpu_torch.ops import fused_adaln as fa
 from aid_tpu_torch.sampling import degradations as degr
 from aid_tpu_torch.sampling.heun import (Record, SamplerConfig, heun_body, heun_last,
                                          make_score_fn, write_record)
+from aid_tpu_torch.utils import trace
 from aid_tpu_torch.utils.graphs import Spec, capture, capture_stream, warm_up, zeros
 
 
@@ -161,7 +169,8 @@ class HeunProgram:
 
         def counted(x, t):
             calls[0] += 1
-            return denoise(x, t)
+            with trace.mark("heun.denoise"):
+                return denoise(x, t)
 
         self.score = make_score_fn(p, cfg, counted, y=self.ops.y,
                                    degradation=self.ops.degradation, proj=self.ops.proj,
@@ -173,12 +182,16 @@ class HeunProgram:
         self.replayed_scores = 0                   # denoiser calls the replays ran
         self.launches = {"body": 0, "last": 0}     # Triton launches per replay
         self.pool_bytes = 0
-        self.capture_s = 0.0
+        self.warm_up_s = 0.0
         self.replays = 0
-        if dev.type == "cuda":
-            self._capture(pool, stream)
-        elif dev.type != "cpu":
+        # each graph's phase marks: the step, and each denoiser forward in it
+        self.marks = {"body": trace.Marks("heun.body"), "last": trace.Marks("heun.last")}
+        if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"HeunProgram: unsupported device {dev}")
+        with trace.span("program.build") as build:     # on the CPU nothing to build
+            if dev.type == "cuda":
+                self._capture(pool, stream)
+        self.capture_s = build.seconds if self.graphs is not None else 0.0
 
     # ----------------------------------------------------------------- steps
 
@@ -192,16 +205,18 @@ class HeunProgram:
         write_record(self.records, self.i, rec)
 
     def _body(self) -> None:
-        x, rec = heun_body(self.p, self.cfg, self.score, self.x, self.t_i, self.t_next,
-                           self.g, self.z)
-        self._record(rec, x)
-        self.x.copy_(x)
+        with trace.mark("heun.step"):
+            x, rec = heun_body(self.p, self.cfg, self.score, self.x, self.t_i, self.t_next,
+                               self.g, self.z)
+            self._record(rec, x)
+            self.x.copy_(x)
 
     def _last(self) -> None:
-        x, rec = heun_last(self.p, self.cfg, self.score, self.x, self.t_i, self.t_next,
-                           self.g, self.z)
-        self._record(rec, x)
-        self.x.copy_(x)
+        with trace.mark("heun.step"):
+            x, rec = heun_last(self.p, self.cfg, self.score, self.x, self.t_i, self.t_next,
+                               self.g, self.z)
+            self._record(rec, x)
+            self.x.copy_(x)
 
     def _set_step(self, i: int, churn: torch.Tensor) -> None:
         self.t_i.copy_(self.t[i])
@@ -213,7 +228,6 @@ class HeunProgram:
     # --------------------------------------------------------------- capture
 
     def _capture(self, pool, stream) -> None:
-        t0 = time.time()
         dev = self.device
         stream = stream if stream is not None else capture_stream(dev)
         pool = pool if pool is not None else torch.cuda.graph_pool_handle()
@@ -221,23 +235,24 @@ class HeunProgram:
         self.t_i.copy_(self.t[0])
         self.t_next.copy_(self.t[1])
         self.g.copy_(self.gamma[0])
-        warm_up([fn for _, fn in steps], stream)
+        self.warm_up_s = warm_up([fn for _, fn in steps], stream)
         graphs = {}
         for name, fn in steps:
             n0 = self._calls[0]
             graphs[name], _, self.launches[name], peak = capture(
-                fn, stream, pool, f"the {self.task} program's '{name}' step at {self.shape}")
+                fn, stream, pool, f"the {self.task} program's '{name}' step at {self.shape}",
+                marks=self.marks[name])
             self.scores[name] = self._calls[0] - n0
             self.pool_bytes = max(self.pool_bytes, peak)
         torch.cuda.synchronize(dev)
         self.graphs = graphs
-        self.capture_s = time.time() - t0
 
     def _step(self, name: str) -> None:
         if self.graphs is None:
             (self._body if name == "body" else self._last)()
             return
         self.graphs[name].replay()
+        self.marks[name].replayed()
         self.replays += 1
         self.replayed_scores += self.scores[name]
         fa.add_replayed_launches(self.launches[name])
@@ -260,21 +275,22 @@ class HeunProgram:
             if v is None or tuple(v.shape) != tuple(buf.shape):
                 raise ValueError(f"{name} must be {tuple(buf.shape)}, got "
                                  f"{None if v is None else tuple(v.shape)}")
-        for name, v in inputs.items():
-            self.bufs[name].copy_(v)
-        self.x.copy_(prior * self.t[0])
-        for i in range(T - 1):
-            self._set_step(i, churn)
-            self._step("body")
-        self._set_step(T - 1, churn)
-        self._step("last")
-        if self.cfg.data_consistency_end and self.ops.proj_end is not None:
-            x = self.ops.proj_end(self.x)
-        else:
-            x = self.x.clone()
-        if self.cfg.record:
-            return x, Record(*(r.clone() for r in self.records))
-        return x
+        with trace.span("heun.run"):
+            for name, v in inputs.items():
+                self.bufs[name].copy_(v)
+            self.x.copy_(prior * self.t[0])
+            for i in range(T):
+                name = "last" if i == T - 1 else "body"
+                with trace.span("heun." + name):
+                    self._set_step(i, churn)
+                    self._step(name)
+            if self.cfg.data_consistency_end and self.ops.proj_end is not None:
+                x = self.ops.proj_end(self.x)
+            else:
+                x = self.x.clone()
+            if self.cfg.record:
+                return x, Record(*(r.clone() for r in self.records))
+            return x
 
     # --------------------------------------------------------------- reports
 
@@ -308,6 +324,7 @@ class HeunProgram:
         return {"task": self.task, "key": list(self.key), "shape": list(self.shape),
                 "T": self.cfg.T, "order": self.cfg.order, "record": self.cfg.record,
                 "graphs": self.graphs is not None, "capture_s": self.capture_s,
+                "warm_up_s": self.warm_up_s, "graph_capture_s": self.capture_s - self.warm_up_s,
                 "memory_bytes": self.memory_bytes() if self.graphs is not None else None,
                 "static_bytes": self.static_bytes(), "pool_bytes": self.pool_bytes,
                 "scores": dict(self.scores), "scores_per_run": self.scores_per_run(),

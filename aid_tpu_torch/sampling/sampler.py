@@ -19,8 +19,8 @@ dp mesh runs its rows through its own programs).
 
 Noise is drawn from ``generator`` unless the standard-normal ``prior``
 [B, L] and ``churn`` [T, B, L] are injected, in ``heun_sample``'s order
-(the prior first), outside any graph. With ``rid`` each call returns
-(x, Record) instead of x.
+(the prior first), outside any graph (the span ``sample.noise``). With ``rid`` each call
+returns (x, Record) instead of x.
 
 The tester's ``diff_params`` override applies at construction
 (``same_as_training: False`` swaps in the test-time EDM parameters).
@@ -41,6 +41,7 @@ from aid_tpu_torch.sampling import degradations as degr
 from aid_tpu_torch.sampling import program
 from aid_tpu_torch.sampling.heun import SamplerConfig, draw_noise, heun_sample, make_score_fn
 from aid_tpu_torch.sampling.program import HeunProgram, Task
+from aid_tpu_torch.utils import trace
 from aid_tpu_torch.utils.graphs import capture_flags, specs, tensors_key
 
 
@@ -88,8 +89,9 @@ class Sampler:
         ``shape``), drawn at the whole batch's ``shape`` as an unsplit call
         would draw them: a batch split over ranks gets the noise of the
         one-device run."""
-        prior, churn = draw_noise(shape, self.cfg.T, generator, self.device)
-        return prior[rows], churn[:, rows]
+        with trace.span("sample.noise"):
+            prior, churn = draw_noise(shape, self.cfg.T, generator, self.device)
+            return prior[rows], churn[:, rows]
 
     def _denoise(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         return denoise_at(self.p, self.model, x, t)
@@ -111,7 +113,8 @@ class Sampler:
         the request's tensors. The noise is drawn here, outside any graph."""
         shape = tuple(shape)
         if prior is None or churn is None:
-            prior, churn = draw_noise(shape, cfg.T, generator, self.device, prior, churn)
+            with trace.span("sample.noise"):
+                prior, churn = draw_noise(shape, cfg.T, generator, self.device, prior, churn)
         if not self.programs_enabled():
             ops = task.ops(inputs)
             score = make_score_fn(self.p, cfg, self._denoise, y=ops.y,

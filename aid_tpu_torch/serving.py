@@ -46,6 +46,7 @@ from aid_tpu_torch.parallel import ring_attention as ring
 from aid_tpu_torch.parallel import tp
 from aid_tpu_torch.sampling import degradations as degr
 from aid_tpu_torch.sampling.heun import make_score_fn
+from aid_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -285,7 +286,15 @@ class InpaintingService:
     def inpaint(self, audio: np.ndarray, mask: np.ndarray, fs: int,
                 seed: int = 0) -> np.ndarray:
         """Restore the masked samples of an arbitrary-length mono signal at
-        sample rate ``fs``."""
+        sample rate ``fs``. Spans (``utils.trace``): ``serve.request`` around
+        the call and, per round, ``serve.prepare`` (the window batch on the
+        host), ``serve.device`` (from its copy to the device until the result
+        is on the host) and ``serve.finish`` (the write-back and, after the
+        last round, the stitching)."""
+        with trace.span("serve.request"):
+            return self._inpaint(audio, mask, fs, seed)
+
+    def _inpaint(self, audio: np.ndarray, mask: np.ndarray, fs: int, seed: int) -> np.ndarray:
         model_fs = int(self.args.exp.sample_rate)
         L = int(self.args.exp.audio_len)
         audio = np.asarray(audio, np.float32).reshape(-1)
@@ -326,44 +335,53 @@ class InpaintingService:
 
         seeds = np.random.default_rng(seed)   # one noise seed per round
         ctx = max(1, int(self.CHAIN_CONTEXT_FRACTION * L))
-        while ready or chains:
-            batch = []  # (w0, a, b, chain-or-None)
-            # leave a row for single-window jobs whenever any are pending;
-            # chains not scheduled rotate to the front next round
-            n_chain = min(len(chains), self.max_batch - 1 if ready else self.max_batch)
-            for ch in chains[:n_chain]:
-                w0 = int(np.clip(ch.pos - ctx, 0, T - L))
-                fill_hi = min(ch.g1, w0 + L)
-                batch.append((w0, ch.pos - w0, fill_hi - w0, ch))
-            while len(batch) < self.max_batch and ready:
-                batch.append(ready.pop(0) + (None,))
-            xb = np.zeros((len(batch), L), np.float32)
-            mb = np.ones((len(batch), L), np.float32)
-            for r, (w0, a, b, _) in enumerate(batch):
-                xb[r] = out[w0:w0 + L]
-                mb[r] = cur_mask[w0:w0 + L]
-                mb[r, a:b] = 0.0
-            rec = self._run_batch(xb, mb, int(seeds.integers(2 ** 62)))
-            done = []
-            for r, (w0, a, b, ch) in enumerate(batch):
-                # write back only the row's own fill range
-                out[w0 + a:w0 + b] = rec[r, a:b]
-                cur_mask[w0 + a:w0 + b] = 1.0
-                if ch is not None:
-                    ch.pos = w0 + b
-                    if ch.pos >= ch.g1:
-                        done.append(ch)
-            finished = {id(ch) for ch in done}
-            chains = (chains[n_chain:]
-                      + [ch for ch in chains[:n_chain] if id(ch) not in finished])
+        while True:
+            with trace.span("serve.prepare"):
+                batch = []  # (w0, a, b, chain-or-None)
+                # leave a row for single-window jobs whenever any are pending;
+                # chains not scheduled rotate to the front next round
+                n_chain = min(len(chains), self.max_batch - 1 if ready else self.max_batch)
+                for ch in chains[:n_chain]:
+                    w0 = int(np.clip(ch.pos - ctx, 0, T - L))
+                    fill_hi = min(ch.g1, w0 + L)
+                    batch.append((w0, ch.pos - w0, fill_hi - w0, ch))
+                while len(batch) < self.max_batch and ready:
+                    batch.append(ready.pop(0) + (None,))
+                xb = np.zeros((len(batch), L), np.float32)
+                mb = np.ones((len(batch), L), np.float32)
+                for r, (w0, a, b, _) in enumerate(batch):
+                    xb[r] = out[w0:w0 + L]
+                    mb[r] = cur_mask[w0:w0 + L]
+                    mb[r, a:b] = 0.0
+                round_seed = int(seeds.integers(2 ** 62))
+            with trace.span("serve.device"):
+                rec = self._run_batch(xb, mb, round_seed)
+            with trace.span("serve.finish"):
+                done = []
+                for r, (w0, a, b, ch) in enumerate(batch):
+                    # write back only the row's own fill range
+                    out[w0 + a:w0 + b] = rec[r, a:b]
+                    cur_mask[w0 + a:w0 + b] = 1.0
+                    if ch is not None:
+                        ch.pos = w0 + b
+                        if ch.pos >= ch.g1:
+                            done.append(ch)
+                finished = {id(ch) for ch in done}
+                chains = (chains[n_chain:]
+                          + [ch for ch in chains[:n_chain] if id(ch) not in finished])
+                if not (ready or chains):
+                    return self._stitch(out[:orig_len], audio, mask, mask_m, fs, model_fs)
 
-        out = out[:orig_len]
+    @staticmethod
+    def _stitch(out: np.ndarray, audio: np.ndarray, mask: np.ndarray, mask_m: np.ndarray,
+                fs: int, model_fs: int) -> np.ndarray:
+        """The restored model-rate signal ``out`` back at the input's rate,
+        every observed input sample exactly as it came."""
         if fs != model_fs:
             restored = audio_io.resample_host(out, model_fs, fs)[: len(audio)]
             restored = np.pad(restored, (0, len(audio) - len(restored)))
-            # every observed input sample exactly as it came
             return np.where(mask > 0.5, audio, restored).astype(np.float32)
-        return np.where(mask_m[:orig_len] > 0.5, audio, out).astype(np.float32)
+        return np.where(mask_m[:len(out)] > 0.5, audio, out).astype(np.float32)
 
     def inpaint_file(self, in_path: str, mask: np.ndarray, out_path: str,
                      seed: int = 0) -> str:

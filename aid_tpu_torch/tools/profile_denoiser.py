@@ -13,9 +13,12 @@ and power limit:
     (``torch.profiler``), written in full to ``DIR/profile_score.txt``;
   * one step of the guided-Heun body (churn, two guided scores, the Heun
     update) run eagerly and replayed from the sampler's captured program
-    (``Sampler.compile_inpainting``): wall time, device time (the kernels'
-    sum under ``torch.profiler``, and the span between CUDA events around
-    the replay) and the device's idle share of the wall, 1 - device / wall.
+    (``Sampler.compile_inpainting``): wall time, device time (the union of
+    the device's busy intervals under ``torch.profiler``, and the span
+    between CUDA events around the step), the device's idle share of the
+    profiled window and its longest idle gaps, each named by the innermost
+    ``aid.`` span (``utils.trace.idle_gaps``); for the replay also the
+    graph's phase marks (``heun.step`` and each ``heun.denoise`` forward, ms).
 
 ``gpu_line`` and ``flagship_case`` are shared with ``chip_smoke.py`` and
 ``scripts/torch_conv_fold.py``. It needs a CUDA device and fails without one.
@@ -39,6 +42,7 @@ from aid_tpu_torch.diffusion import edm
 from aid_tpu_torch.models.unet_cqt import MAIN_SCALE
 from aid_tpu_torch.sampling import degradations as degr
 from aid_tpu_torch.sampling.heun import draw_noise, make_score_fn
+from aid_tpu_torch.utils import trace
 from aid_tpu_torch.utils.config import compose
 
 
@@ -90,15 +94,14 @@ def wall_s(fn, reps: int = 3) -> float:
     return best
 
 
-def device_ms(fn) -> float:
-    """The device kernels' summed time in one call of ``fn``
-    (``torch.profiler``, CUPTI)."""
+def traced(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CUPTI), reduced by
+    ``utils.trace.idle_gaps``: busy and window ms, idle share, longest gaps."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    return trace.idle_gaps(prof, top=5)
 
 
 def event_ms(fn, reps: int = 3) -> float:
@@ -120,30 +123,34 @@ def body_step(case) -> dict:
     eagerly (``heun_body`` over the program's buffers) and replayed from
     the captured graph: wall, device time and idle share of each."""
     prog = case.sampler.compile_inpainting(case.audio * case.mask, case.mask)
-    prog.y.copy_(case.audio * case.mask)
-    prog.mask.copy_(case.mask)
-    prog.smooth.copy_(case.mask)
+    prog.bufs["y"].copy_(case.audio * case.mask)
+    prog.bufs["mask"].copy_(case.mask)
+    prog.bufs["smooth"].copy_(case.mask)
     gen = torch.Generator(device=case.audio.device).manual_seed(0)
     prior, churn = draw_noise(prog.shape, prog.cfg.T, gen, case.audio.device)
     start = prior * prog.t[0]
 
     def eager():
-        prog.x.copy_(start)
-        prog._set_step(0, churn)
-        prog._body()
+        with trace.span("heun.body"):
+            prog.x.copy_(start)
+            prog._set_step(0, churn)
+            prog._body()
 
     def replay():
-        prog.x.copy_(start)
-        prog._set_step(0, churn)
-        prog.graphs["body"].replay()
+        with trace.span("heun.body"):
+            prog.x.copy_(start)
+            prog._set_step(0, churn)
+            prog.graphs["body"].replay()
+            prog.marks["body"].replayed()
 
-    out = {"capture_s": prog.capture_s, "memory_bytes": prog.memory_bytes(),
-           "launches_per_replay": prog.launches["body"]}
+    out = {"capture_s": prog.capture_s, "warm_up_s": prog.warm_up_s,
+           "memory_bytes": prog.memory_bytes(), "launches_per_replay": prog.launches["body"]}
     for name, fn in (("eager", eager), ("graph", replay)):
         wall = wall_s(fn)
-        dev = device_ms(fn)
-        out[name] = {"wall_ms": wall * 1e3, "device_ms": dev, "event_ms": event_ms(fn),
-                     "idle_share": max(0.0, 1.0 - dev / (wall * 1e3))}
+        t = traced(fn)
+        out[name] = {"wall_ms": wall * 1e3, "device_ms": t["busy_ms"], "event_ms": event_ms(fn),
+                     "idle_share": t["idle_share"], "idle_gaps_ms": t["gaps"]}
+    out["graph"]["marks_ms"] = prog.marks["body"].read()
     return out
 
 
@@ -183,8 +190,8 @@ def main():
         f.write(f"{gpu}\n{table}\n")
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events)
-    print(json.dumps({"guided_score_device_ms": total / 1e3, "kernels": len(events),
-                      "card": gpu}), flush=True)
+    print(json.dumps({"guided_score_device_ms": trace.idle_gaps(prof)["busy_ms"],
+                      "kernels": len(events), "card": gpu}), flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(json.dumps({"kernel": e.key[:90], "calls": e.count,
                           "device_ms": e.self_device_time_total / 1e3,

@@ -13,11 +13,14 @@ and the eager step, reports, each beside the card's name and power limit:
   * the wall time of one training step (host clock around steps that end in
     a synchronise; best of three after two warm-up steps) and the peak
     device memory;
-  * one profiled step (``torch.profiler``): the device time summed over its
-    kernels, the device's idle share of the unprofiled step's wall time
-    (the profiler slows the host, not the device), and the ten
-    kernels that take the most device time; the full operator table goes to
-    ``DIR/profile_train_step_{route}.txt``.
+  * one profiled step (``torch.profiler``): the device time (the union of
+    its busy intervals), the device's idle share of the profiled window and
+    of the unprofiled step's wall time (the profiler slows the host, not the
+    device), the longest idle gaps, each named by the innermost ``aid.``
+    span (``utils.trace.idle_gaps``: ``aid.train.inputs`` and the like), the
+    ten kernels that take the most device time and, for the program, the
+    step graph's phase marks (``train.forward``, ``.backward``, ``.update``,
+    ms); the full operator table goes to ``DIR/profile_train_step_{route}.txt``.
 
 It needs a CUDA device and fails without one.
 """
@@ -35,6 +38,7 @@ from torch.autograd import DeviceType
 from aid_tpu_torch import setup
 from aid_tpu_torch.tools.profile_denoiser import gpu_line
 from aid_tpu_torch.train import compose_args
+from aid_tpu_torch.utils import trace
 
 
 def main():
@@ -94,11 +98,16 @@ def profile_route(out, gpu, args, tr, audio, fs, route):
         f.write(f"{gpu}\n{table}\n")
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events) / 1e6
-    # the profiler slows the host, not the device: the idle share is the
-    # device sum against the unprofiled step's wall time
-    print(json.dumps({"route": route, "profiled_step_wall_s": wall, "device_s": total,
-                      "idle_share": 1.0 - total / best, "kernels": len(events),
-                      "card": gpu}), flush=True)
+    t = trace.idle_gaps(prof)
+    # the profiler slows the host, not the device: the unprofiled idle share
+    # is the device's busy time against the unprofiled step's wall time
+    line = {"route": route, "profiled_step_wall_s": wall, "device_s": t["busy_ms"] / 1e3,
+            "idle_share": t["idle_share"], "idle_share_unprofiled": 1.0 - t["busy_ms"] / 1e3 / best,
+            "idle_gaps_ms": t["gaps"], "kernels": len(events), "card": gpu}
+    if route == "program":
+        (prog,) = tr._step_programs.values()
+        line["marks_ms"] = prog.marks.read()
+    print(json.dumps(line), flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(json.dumps({"route": route, "kernel": e.key[:90], "calls": e.count,
                           "device_ms": e.self_device_time_total / 1e3,

@@ -33,15 +33,22 @@ On the CPU ``run`` calls the same functions eagerly over the same buffers.
 
 Kernel launches: the Triton kernel's wrapper counts those a capture
 records apart (``fused_adaln.captured_count``); each replay adds them.
+
+Tracing (``utils.trace``): the span ``program.build`` around the build
+(``program.warm_up`` and ``program.capture`` inside it; ``report()`` gives
+``capture_s``, ``warm_up_s`` and ``graph_capture_s``) and ``train.replay``
+around the replay (the eager call on the CPU); the phase marks the step
+makes (the trainer's ``train.forward``, ``train.backward`` and
+``train.update``) are ``marks``'s, read after a replay.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, Optional
 
 import torch
 
 from aid_tpu_torch.ops import fused_adaln as fa
+from aid_tpu_torch.utils import trace
 from aid_tpu_torch.utils.graphs import Spec, capture, capture_stream, warm_up, zeros
 
 
@@ -72,12 +79,16 @@ class StepProgram:
         self.launches = 0           # Triton launches per replay
         self.warmup_launches = 0
         self.pool_bytes = 0
-        self.capture_s = 0.0
+        self.warm_up_s = 0.0
         self.replays = 0
-        if dev.type == "cuda":
-            self._capture(restore)
-        elif dev.type != "cpu":
+        # the step's phase marks (the trainer's train.forward, .backward, .update)
+        self.marks = trace.Marks("train.step")
+        if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"StepProgram: unsupported device {dev}")
+        with trace.span("program.build") as build:     # on the CPU nothing to build
+            if dev.type == "cuda":
+                self._capture(restore)
+        self.capture_s = build.seconds if self.graphs else 0.0
 
     def _draws(self) -> Dict[str, torch.Tensor]:
         return {k: v for k, v in self.bufs.items() if k != "x"}
@@ -92,27 +103,28 @@ class StepProgram:
         return tail(carry, self.ema_keep)
 
     def _capture(self, restore) -> None:
-        t0 = time.time()
         dev = self.device
         stream = capture_stream(dev)
         what = f"the training step at {self.shapes()}"
         try:
             n0 = fa.launch_count()
-            warm_up([self._call], stream)
+            self.warm_up_s = warm_up([self._call], stream)
             self.warmup_launches = fa.launch_count() - n0
             if self.hook is None:
-                g, self.out, self.launches, self.pool_bytes = capture(self._call, stream,
-                                                                      what=what)
+                g, self.out, self.launches, self.pool_bytes = capture(
+                    self._call, stream, what=what, marks=self.marks)
                 self.graphs = [g]
             else:
                 head, tail = self.step
                 pool = torch.cuda.graph_pool_handle()
                 base = torch.cuda.memory_allocated(dev)
                 ga, carry, la, peak_a = capture(lambda: head(self.bufs["x"], self._draws()),
-                                                stream, pool, what=f"the head of {what}")
+                                                stream, pool, what=f"the head of {what}",
+                                                marks=self.marks)
                 held = torch.cuda.memory_allocated(dev) - base   # what the tail finds live
                 gb, self.out, lb, peak_b = capture(lambda: tail(carry, self.ema_keep), stream,
-                                                   pool, what=f"the tail of {what}")
+                                                   pool, what=f"the tail of {what}",
+                                                   marks=self.marks)
                 self.graphs, self.carry = [ga, gb], carry
                 self.launches, self.pool_bytes = la + lb, max(peak_a, held + peak_b)
         finally:
@@ -122,7 +134,6 @@ class StepProgram:
         # the warm-up's blocks, cached for its side stream, would stay reserved
         # beside the graph's pool (at full width tens of GB)
         torch.cuda.empty_cache()
-        self.capture_s = time.time() - t0
 
     def run(self, x: torch.Tensor, draws: Dict[str, torch.Tensor], ema_keep: float) -> Dict:
         """One step on ``x`` and ``draws`` (the buffers' names and shapes)
@@ -137,12 +148,14 @@ class StepProgram:
         for k, v in given.items():
             self.bufs[k].copy_(v)
         self.ema_keep.fill_(float(ema_keep))
-        if not self.graphs:
-            return self._call()
-        self.graphs[0].replay()
-        if self.hook is not None:
-            self.hook(self.carry)
-            self.graphs[1].replay()
+        with trace.span("train.replay"):       # on the CPU the eager call
+            if not self.graphs:
+                return self._call()
+            self.graphs[0].replay()
+            if self.hook is not None:
+                self.hook(self.carry)
+                self.graphs[1].replay()
+        self.marks.replayed()
         self.replays += 1
         fa.add_replayed_launches(self.launches)
         return fresh(self.out)
@@ -170,7 +183,8 @@ class StepProgram:
     def report(self) -> dict:
         return {"shapes": self.shapes(), "graph": bool(self.graphs),
                 "graphs": len(self.graphs), "hook": self.hook is not None,
-                "capture_s": self.capture_s,
+                "capture_s": self.capture_s, "warm_up_s": self.warm_up_s,
+                "graph_capture_s": self.capture_s - self.warm_up_s,
                 "memory_bytes": self.memory_bytes() if self.graphs else None,
                 "static_bytes": self.static_bytes(), "pool_bytes": self.pool_bytes,
                 "launches_per_replay": self.launches, "warmup_launches": self.warmup_launches,

@@ -39,6 +39,10 @@ moment, EMA, counter or buffer) drops the program. Under a process group
 ``programs_enabled`` says which steps a capture can hold: a dp step as two
 graphs around its gradient all-reduce (``_dp_head``, ``_dp_reduce``,
 ``_dp_tail``), an FSDP2 step under NCCL as one; the rest run eagerly.
+Inside the step, phase marks (``utils.trace.mark``) time each micro-batch's
+forward (``train.forward``, up to the loss) and backward (``train.backward``,
+remat's recompute included) and the update (``train.update``) on every
+replay of a captured step; ``_train_step`` lists the host spans.
 
 Under a process group (``parallel.mesh.init_distributed``) the global batch
 ``exp.batch`` is split over a ``"dp"`` mesh of ranks, each of which takes its
@@ -81,6 +85,7 @@ from aid_tpu_torch.training.program import StepProgram
 from aid_tpu_torch.utils.graphs import capture_flags, capture_stream, specs, tensors_key
 from aid_tpu_torch.utils import checkpoint as ckpt
 from aid_tpu_torch.utils import logging_utils as logu
+from aid_tpu_torch.utils import trace
 
 
 class Trainer:
@@ -386,17 +391,20 @@ class Trainer:
         losses, per_sample, sigmas = [], [], []
         n_micro = x.shape[0]
         for i in range(n_micro):
-            xi = tutils.augment(x[i], self.aug_cfg, sign=draws.get("sign", [None] * n_micro)[i],
-                                gain_db=draws.get("gain_db", [None] * n_micro)[i])
             # DDP averages the gradients over the ranks in the last backward
             sync = (contextlib.nullcontext() if i == n_micro - 1 or model is self.net
                     else model.no_sync())
             with sync:
-                err2, sigma = edm.loss_fn(self.p, model, xi, None, self.error_filter,
-                                          sigma=draws["sigma"][i], noise=draws["noise"][i])
-                ps = err2.reshape(err2.shape[0], -1).mean(-1)
-                loss = ps.mean()
-                loss.backward()
+                with trace.mark("train.forward"):
+                    xi = tutils.augment(x[i], self.aug_cfg,
+                                        sign=draws.get("sign", [None] * n_micro)[i],
+                                        gain_db=draws.get("gain_db", [None] * n_micro)[i])
+                    err2, sigma = edm.loss_fn(self.p, model, xi, None, self.error_filter,
+                                              sigma=draws["sigma"][i], noise=draws["noise"][i])
+                    ps = err2.reshape(err2.shape[0], -1).mean(-1)
+                    loss = ps.mean()
+                with trace.mark("train.backward"):
+                    loss.backward()
             losses.append(loss.detach())
             per_sample.append(ps.detach())
             sigmas.append(sigma.detach())
@@ -538,7 +546,9 @@ class Trainer:
     def _step(self, x: torch.Tensor, draws: Dict[str, torch.Tensor],
               ema_keep: torch.Tensor) -> Dict:
         """One iteration on device tensors: what a step program runs."""
-        return self.apply_grads(*self._loss_and_grads(x, draws), ema_keep)
+        loss, per_sample, sigma, grads = self._loss_and_grads(x, draws)
+        with trace.mark("train.update"):
+            return self.apply_grads(loss, per_sample, sigma, grads, ema_keep)
 
     # A dp step (DDP's) as two functions around its one collective: a step
     # program captures each as a graph and all-reduces between them.
@@ -567,9 +577,10 @@ class Trainer:
         nb = self._edges.numel() - 1
         *gs, loss, bins, moments = flat.split([q.numel() for q in self.params] + [1, 3 * nb, 3])
         grads = [g.view_as(q) for g, q in zip(gs, self.params)]
-        if self.n_accum > 1:
-            torch._foreach_div_(grads, float(self.n_accum))
-        return self._update(grads, ema_keep, loss.reshape(()), bins.view(nb, 3), moments)
+        with trace.mark("train.update"):
+            if self.n_accum > 1:
+                torch._foreach_div_(grads, float(self.n_accum))
+            return self._update(grads, ema_keep, loss.reshape(()), bins.view(nb, 3), moments)
 
     def get_batch(self):
         """Next host batch: (audio [n_accum B, T] f32, fs [n_accum B])."""
@@ -684,15 +695,25 @@ class Trainer:
         return self._train_step(audio, fs, draws, self.programs_enabled())
 
     def _train_step(self, audio, fs, draws, program: bool) -> Dict:
-        x, d = self._inputs(*self._split(audio, fs), draws)
-        keep = self._ema_keep()
-        if program:
-            m = self._step_program(x, d).run(x, d, keep)
-            self._state_seen = self._state_key()   # an eager CPU run moved the versions
-        else:
-            m = self._step(x, d, torch.tensor(keep, device=self.device))
-        self.it += 1
-        return m
+        """Spans (``utils.trace``): ``train.step`` around the call;
+        ``train.inputs`` (``_inputs``), ``train.program`` (the program's
+        lookup, or its build) and ``train.run`` (the step: the program's
+        copies, replay and fresh metrics, or the eager step)."""
+        with trace.span("train.step"):
+            with trace.span("train.inputs"):
+                x, d = self._inputs(*self._split(audio, fs), draws)
+                keep = self._ema_keep()
+            if program:
+                with trace.span("train.program"):
+                    prog = self._step_program(x, d)
+                with trace.span("train.run"):
+                    m = prog.run(x, d, keep)
+                    self._state_seen = self._state_key()   # an eager CPU run moved the versions
+            else:
+                with trace.span("train.run"):
+                    m = self._step(x, d, torch.tensor(keep, device=self.device))
+            self.it += 1
+            return m
 
     # --------------------------------------------------------------- logging
 

@@ -20,12 +20,14 @@ failed due to a previous error during capture" at its next launch).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from aid_tpu_torch.ops import fused_adaln as fa
+from aid_tpu_torch.utils import trace
 
 Spec = Tuple[Tuple[int, ...], torch.dtype]      # a buffer's shape and dtype
 
@@ -53,26 +55,31 @@ def capture_stream(device) -> "torch.cuda.Stream":
     return s
 
 
-def warm_up(fns, stream: "torch.cuda.Stream") -> None:
+def warm_up(fns, stream: "torch.cuda.Stream") -> float:
     """Run each of ``fns`` once, eagerly, on ``stream`` and wait for it: the
     Triton kernel's variants compile, cuFFT makes its plans, cuDNN picks
-    its algorithms and every table reaches the device before a capture."""
+    its algorithms and every table reaches the device before a capture.
+    Returns its seconds (the span ``program.warm_up``)."""
     dev = stream.device
-    stream.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(stream):
-        for fn in fns:
-            fn()
-    torch.cuda.current_stream(dev).wait_stream(stream)
-    torch.cuda.synchronize(dev)
+    with trace.span("program.warm_up") as s:
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for fn in fns:
+                fn()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        torch.cuda.synchronize(dev)
+    return s.seconds
 
 
-def capture(fn: Callable, stream: "torch.cuda.Stream", pool=None, what: str = "a step"):
+def capture(fn: Callable, stream: "torch.cuda.Stream", pool=None, what: str = "a step",
+            marks: Optional[trace.Marks] = None):
     """Capture ``fn()`` as one CUDA graph on ``stream`` into ``pool`` (a
-    private pool when None), with the collector off. Returns (the graph,
-    what ``fn`` returned, the Triton launches the capture recorded, the
-    peak bytes it allocated in the pool; the device's peak-memory
-    statistics are reset to measure it). A capture that fails raises,
-    naming ``what``."""
+    private pool when None), with the collector off, inside the span
+    ``program.capture``; the phase marks ``fn`` makes are ``marks``'s. Returns
+    (the graph, what ``fn`` returned, the Triton launches the capture
+    recorded, the peak bytes it allocated in the pool; the device's
+    peak-memory statistics are reset to measure it). A capture that fails
+    raises, naming ``what``."""
     dev = stream.device
     g = torch.cuda.CUDAGraph()
     base = torch.cuda.memory_allocated(dev)
@@ -81,7 +88,9 @@ def capture(fn: Callable, stream: "torch.cuda.Stream", pool=None, what: str = "a
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(g, pool=pool, stream=stream):
+        with trace.span("program.capture"), \
+                (marks.capturing() if marks is not None else contextlib.nullcontext()), \
+                torch.cuda.graph(g, pool=pool, stream=stream):
             out = fn()
     except Exception as e:
         raise RuntimeError(f"CUDA graph capture of {what} failed: {e!r}") from e

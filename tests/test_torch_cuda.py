@@ -412,3 +412,62 @@ def test_a_graph_freed_inside_a_capture_breaks_it(cuda):
     torch.cuda.synchronize()
     z = torch.ones(8, device="cuda") * 2
     assert float(z.sum()) == 16.0
+
+
+def _replay_ms(replay):
+    """The span between CUDA events around one call of ``replay``."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def test_tiny_programs_read_their_phase_marks_after_a_replay(cuda, tmp_path):
+    """The phase marks a capture records are written by every replay, with no
+    host synchronisation: after a run the sampler program's body graph reads
+    its step and its two denoiser forwards, the trainer's step graph its
+    forward, backward and update, each positive; the forwards plus the rest
+    of the step are the step, and the step is within 1% of the replay's own
+    span between CUDA events around it."""
+    import numpy as np
+
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch.sampling import heun
+    from aid_tpu_torch.utils import trace
+    from aid_tpu_torch.utils.config import compose
+
+    args = compose(overrides=TINY_SAMPLER)
+    net = tsetup.setup_network(args, device="cuda", seed=0)
+    s = tsetup.setup_sampler(args, net, tsetup.setup_diff_parameters(args))
+    x = torch.randn(2, 2048, generator=cuda, device="cuda") * 0.1
+    prior, churn = heun.draw_noise((2, 2048), s.cfg.T, cuda, "cuda")
+    _task_call(s, "inpainting", x, None, dict(prior=prior, churn=churn))
+    (prog,) = s._programs.values()
+    assert prog.report()["warm_up_s"] > 0 and prog.report()["graph_capture_s"] > 0
+    body = prog.marks["body"]
+    outer = _replay_ms(lambda: prog._step("body"))
+    latest = max((g for g in trace.snapshot()["marks"] if g["graph"] == "heun.body"),
+                 key=lambda g: g["last"])
+    marks = latest["marks"]
+    assert latest["last"] == body.last and latest["replays"] == s.cfg.T
+    assert sorted(n for n, _ in marks) == ["heun.denoise", "heun.denoise", "heun.step"]
+    step = sum(ms for n, ms in marks if n == "heun.step")
+    forwards = [ms for n, ms in marks if n == "heun.denoise"]
+    assert all(ms > 0 for ms in forwards) and sum(forwards) < step
+    assert abs(step - outer) <= 0.01 * outer, (step, outer)
+
+    tr = _tiny_trainer(tmp_path)
+    tr.init_state()
+    audio = (np.random.default_rng(0).standard_normal((4, 4400)) * 0.1).astype(np.float32)
+    fs = np.array([44100, 48000, 44100, 48000])
+    tr.train_step(audio, fs)
+    (sp,) = tr._step_programs.values()
+    outer = _replay_ms(sp.graphs[0].replay)
+    phases = {}
+    for n, ms in sp.marks.read():
+        phases[n] = phases.get(n, 0.0) + ms
+    assert sorted(phases) == ["train.backward", "train.forward", "train.update"]
+    assert all(ms > 0 for ms in phases.values())
+    assert abs(sum(phases.values()) - outer) <= 0.01 * outer, (phases, outer)
