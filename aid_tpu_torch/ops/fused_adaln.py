@@ -20,11 +20,27 @@ no table is read per element; the GELU variant and the dtype are
 compile-time specialisations, so the body carries no branch. ``group_std``
 stays a torch reduction outside the kernel, as in the JAX package.
 
-The backward is plain torch (as the JAX backward is plain XLA), inside a
-``torch.autograd.Function``; a fused backward kernel is later work.
+The backward, ``_fused_adaln_bwd`` (Triton), replaces no TPU kernel: the JAX
+backward is plain XLA, which fuses it into a few passes by itself, while
+PyTorch runs the same plain backward as ~25 full-size f32 elementwise passes
+(~240 bytes of traffic an element). For ``v = x * s``, ``s = inv * mod``, it
+computes ``dv = g * gelu'(v)``, writes ``dx = dv * s`` in x's dtype, and
+reduces ``q = sum_rows(dv * x)`` in f32, from which ``dinv = q * mod`` and
+``dmod = q * inv``. It is bound by HBM bytes too: one read of ``x`` and ``g``
+and one write of ``dx``, ``3 * bytes(x)`` per launch. Each program owns whole
+rows of one batch entry, loops over ``TILES`` contiguous row tiles with the
+batch row's scale in registers, keeps its ``dv * x`` sums in f32 registers
+across the loop, and writes one ``[C]`` partial into a ``[B, P, C]`` scratch
+buffer; a torch sum over ``P`` finishes the reduction. No atomics: the sums
+are taken in one fixed order, so a run, and a CUDA graph's replay of it, is
+bit-identical to the next. The tile (rows per tile, programs per batch row,
+warps) is chosen from the shape and dtype (``_bwd_tile``); the variants are
+compiled per dtype, GELU variant, column block and which gradients are
+needed, nothing else.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. ``triton`` is imported inside the CUDA branch only.
+Dispatch, both directions: a CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises. ``triton`` is imported inside the
+CUDA branch only.
 """
 from __future__ import annotations
 
@@ -32,36 +48,56 @@ import math
 
 import torch
 
+from aid_tpu_torch.utils import trace
+
 GELU_VARIANTS = ("erf", "tanh", "sigmoid")
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
-# Launches of the Triton kernel. The wrapper adds one per launch; a launch
-# that a CUDA graph capture records instead goes to ``_captured``, and each
-# replay of that graph adds what it recorded (``add_replayed_launches``).
-# Nothing else touches them except ``reset_launch_count``.
+# Launches of the Triton kernels, the forward's and the backward's apart. The
+# wrappers add one per launch; a launch that a CUDA graph capture records
+# instead goes to ``_captured`` / ``_bwd_captured``, and each replay of that
+# graph adds what it recorded (``add_replayed_launches``). Nothing else
+# touches them except ``reset_launch_count``. The forward's count stays the
+# forward's alone: the benchmark divides the forward's bytes by it.
 _launches = 0
 _captured = 0
+_bwd_launches = 0
+_bwd_captured = 0
 
 
 def launch_count() -> int:
+    """Forward kernel launches."""
     return _launches
 
 
+def bwd_launch_count() -> int:
+    """Backward kernel launches."""
+    return _bwd_launches
+
+
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    """Zero both launch counts."""
+    global _launches, _bwd_launches
+    _launches = _bwd_launches = 0
 
 
-def captured_count() -> int:
-    """Launches recorded by CUDA graph captures so far (not run by them)."""
-    return _captured
+def captured_counts() -> tuple:
+    """(forward, backward) launches recorded by CUDA graph captures so far
+    (not run by them)."""
+    return _captured, _bwd_captured
 
 
-def add_replayed_launches(n: int) -> None:
-    """A replay of a CUDA graph that recorded ``n`` launches launched them."""
-    global _launches
+def add_replayed_launches(n: int, bwd: int = 0) -> None:
+    """A replay of a CUDA graph that recorded ``n`` forward and ``bwd``
+    backward launches launched them."""
+    global _launches, _bwd_launches
     _launches += n
+    _bwd_launches += bwd
+
+
+trace.counter("fused_adaln.launches", launch_count)
+trace.counter("fused_adaln.bwd_launches", bwd_launch_count)
 
 
 # ------------------------------------------------------------------ plain
@@ -98,9 +134,23 @@ def fused_plain(x: torch.Tensor, inv: torch.Tensor, mod: torch.Tensor,
     return gelu_plain(x.float() * s, gelu).to(x.dtype)
 
 
+def fused_bwd_plain(x: torch.Tensor, g: torch.Tensor, inv: torch.Tensor,
+                    mod: torch.Tensor, gelu: str, need_dx: bool = True,
+                    need_q: bool = True):
+    """Plain torch version of the backward kernel: (dx in x's dtype, or None;
+    q = sum over rows of dv * x [B, C] f32, or None) for y = gelu(x * s)."""
+    xf = x.float()
+    s = (inv * mod)[:, None, :]
+    dv = g.float() * _gelu_grad(xf * s, gelu)
+    dx = (dv * s).to(x.dtype) if need_dx else None
+    q = (dv * xf).sum(1) if need_q else None
+    return dx, q
+
+
 # ----------------------------------------------------------------- kernel
 
 _KERNEL = None
+_BWD_KERNEL = None
 
 
 def _build_kernel():
@@ -142,10 +192,91 @@ def _build_kernel():
     return _KERNEL
 
 
+def _build_bwd_kernel():
+    """Define the backward Triton kernel on first CUDA use."""
+    global _BWD_KERNEL
+    if _BWD_KERNEL is not None:
+        return _BWD_KERNEL
+    import triton
+    import triton.language as tl
+
+    @triton.jit(do_not_specialize=["R", "TILES"])
+    def _fused_adaln_bwd(x_ptr, g_ptr, inv_ptr, mod_ptr, dx_ptr, q_ptr, R, C, TILES,
+                         BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
+                         GELU: tl.constexpr, NEED_DX: tl.constexpr,
+                         NEED_Q: tl.constexpr):
+        pid = tl.program_id(0)
+        b = tl.program_id(1)
+        cols = tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        # the batch row's [C] scale, loaded once per program
+        inv = tl.load(inv_ptr + b * C + cols, mask=cmask, other=0.0)
+        mod = tl.load(mod_ptr + b * C + cols, mask=cmask, other=0.0)
+        s = (inv * mod)[None, :]
+        r = tl.arange(0, BLOCK_R)
+        offs = r[:, None] * C + cols[None, :]          # within a tile, int32
+        acc = tl.zeros((BLOCK_R, BLOCK_C), dtype=tl.float32)
+        row0 = pid * TILES * BLOCK_R
+        for t in range(0, TILES):
+            start = row0 + t * BLOCK_R
+            base = (b.to(tl.int64) * R + start) * C
+            m = ((start + r)[:, None] < R) & cmask[None, :]
+            x = tl.load(x_ptr + base + offs, mask=m, other=0.0).to(tl.float32)
+            g = tl.load(g_ptr + base + offs, mask=m, other=0.0).to(tl.float32)
+            v = x * s
+            if GELU == 0:      # erf: Phi(v) + v phi(v)
+                d = (0.5 * (1.0 + tl.erf(v * 0.7071067811865476))
+                     + v * tl.exp(-0.5 * v * v) * 0.3989422804014327)
+            elif GELU == 1:    # tanh: 0.5 (1 + th) = sg, 1 - th^2 = 4 sg (1 - sg)
+                u = 0.7978845608028654 * (v + 0.044715 * v * v * v)
+                # sg = sigmoid(2u) and sg (1 - sg) = e / (1 + e)^2 from
+                # e = exp(-2|u|), with no 1 - sg that cancels in either tail
+                e = tl.exp(-2.0 * tl.abs(u))
+                w = 1.0 / (1.0 + e)
+                sg = tl.where(u >= 0.0, w, e * w)
+                du = 0.7978845608028654 * (1.0 + 0.134145 * v * v)
+                d = sg + 2.0 * v * du * (e * w * w)
+            else:              # sigmoid approximation, the same way
+                e = tl.exp(-1.702 * tl.abs(v))
+                w = 1.0 / (1.0 + e)
+                d = tl.where(v >= 0.0, w, e * w) + 1.702 * v * (e * w * w)
+            dv = g * d
+            if NEED_DX:
+                tl.store(dx_ptr + base + offs, (dv * s).to(dx_ptr.dtype.element_ty), mask=m)
+            if NEED_Q:
+                acc += dv * x
+        if NEED_Q:
+            q = tl.sum(acc, axis=0)
+            tl.store(q_ptr + (b * tl.num_programs(0) + pid) * C + cols, q, mask=cmask)
+
+    _BWD_KERNEL = _fused_adaln_bwd
+    return _BWD_KERNEL
+
+
 def _tile(C: int):
     block_c = 1 << max(0, (C - 1).bit_length())
     block_r = max(1, 8192 // block_c)
     return block_r, block_c
+
+
+# The backward's tile: 16 KiB of x a tile (64 bytes a thread of each tensor
+# in and out at 8 warps), and programs enough for two per SM of the card's
+# 132 across the batch: the best of a sweep of 2-8K elements, 4-8 warps and
+# 1-8 programs an SM at the flagships' shapes on an H100.
+_BWD_TILE_BYTES = 16384
+_BWD_WARPS = 8
+_BWD_PROGRAMS = 264
+
+
+def _bwd_tile(B: int, R: int, C: int, itemsize: int):
+    """(BLOCK_R, BLOCK_C, row tiles a program, programs a batch row, warps)
+    for x [B, R, C]: a fixed function of the shape and dtype, so the
+    partial sums, and their order, are too."""
+    block_c = 1 << max(0, (C - 1).bit_length())
+    block_r = max(1, _BWD_TILE_BYTES // itemsize // block_c)
+    tiles = -(-R // block_r)
+    per_prog = -(-tiles // max(1, _BWD_PROGRAMS // B))
+    return block_r, block_c, per_prog, -(-tiles // per_prog), _BWD_WARPS
 
 
 def _fused_cuda(x: torch.Tensor, inv: torch.Tensor, mod: torch.Tensor,
@@ -165,6 +296,28 @@ def _fused_cuda(x: torch.Tensor, inv: torch.Tensor, mod: torch.Tensor,
     return y
 
 
+def _fused_bwd_cuda(x: torch.Tensor, g: torch.Tensor, inv: torch.Tensor,
+                    mod: torch.Tensor, gelu: str, need_dx: bool = True,
+                    need_q: bool = True):
+    """The backward kernel: as ``fused_bwd_plain``."""
+    global _bwd_launches, _bwd_captured
+    kernel = _build_bwd_kernel()
+    B, R, C = x.shape
+    g = g.contiguous()
+    block_r, block_c, per_prog, P, warps = _bwd_tile(B, R, C, x.element_size())
+    dx = torch.empty_like(x) if need_dx else None
+    part = torch.empty((B, P, C), dtype=torch.float32, device=x.device) if need_q else None
+    kernel[(P, B)](x, g, inv, mod, x if dx is None else dx, inv if part is None else part,
+                   R, C, per_prog, BLOCK_R=block_r, BLOCK_C=block_c,
+                   GELU=GELU_VARIANTS.index(gelu), NEED_DX=need_dx, NEED_Q=need_q,
+                   num_warps=warps)
+    if torch.cuda.is_current_stream_capturing():
+        _bwd_captured += 1
+    else:
+        _bwd_launches += 1
+    return dx, (part.sum(1) if need_q else None)
+
+
 def _fused_forward(x, inv, mod, gelu):
     if x.device.type == "cuda":
         return _fused_cuda(x, inv, mod, gelu)
@@ -173,10 +326,18 @@ def _fused_forward(x, inv, mod, gelu):
     raise ValueError(f"fused_adaln: unsupported device {x.device}")
 
 
+def _fused_backward(x, g, inv, mod, gelu, need_dx, need_q):
+    if x.device.type == "cuda":
+        return _fused_bwd_cuda(x, g, inv, mod, gelu, need_dx, need_q)
+    if x.device.type == "cpu":
+        return fused_bwd_plain(x, g, inv, mod, gelu, need_dx, need_q)
+    raise ValueError(f"fused_adaln: unsupported device {x.device}")
+
+
 class _Fused(torch.autograd.Function):
-    """y = gelu(x * inv * mod); forward through the kernel (or the plain
-    version on CPU), backward in plain torch: dx = g gelu'(v) s and the
-    table gradients are row sums."""
+    """y = gelu(x * inv * mod), forward and backward through the kernels (or
+    their plain versions on CPU): dx = g gelu'(v) s, and the table gradients
+    come from one row sum q = sum_rows(g gelu'(v) x)."""
 
     @staticmethod
     def forward(ctx, x, inv, mod, gelu):
@@ -187,14 +348,9 @@ class _Fused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, inv, mod = ctx.saved_tensors
-        xf = x.float()
-        s = (inv * mod)[:, None, :]
-        v = xf * s
-        dv = g.float() * _gelu_grad(v, ctx.gelu)
-        dx = (dv * s).to(x.dtype) if ctx.needs_input_grad[0] else None
-        dinv = ((dv * xf).sum(1) * mod if ctx.needs_input_grad[1] else None)
-        dmod = ((dv * xf).sum(1) * inv if ctx.needs_input_grad[2] else None)
-        return dx, dinv, dmod, None
+        need_dx, need_inv, need_mod = ctx.needs_input_grad[:3]
+        dx, q = _fused_backward(x, g, inv, mod, ctx.gelu, need_dx, need_inv or need_mod)
+        return (dx, q * mod if need_inv else None, q * inv if need_mod else None, None)
 
 
 def _check(x: torch.Tensor, std: torch.Tensor, gamma: torch.Tensor,

@@ -35,9 +35,9 @@ operation that broke it.
 On the CPU the same object runs the same step functions eagerly over the
 same buffers: its result is ``heun_sample``'s bit for bit.
 
-Kernel launches: the Triton kernel's wrapper counts the launches a capture
-records apart from real ones (``fused_adaln.captured_count``); each replay
-adds what its graph recorded to the launch count.
+Kernel launches: the Triton kernels' wrappers count the launches a capture
+records apart from real ones (``fused_adaln.captured_counts``, forward and
+backward); each replay adds what its graph recorded to the launch counts.
 
 Tracing (``utils.trace``): the spans ``program.build`` (the whole build;
 ``program.warm_up`` and ``program.capture`` inside it, whose seconds
@@ -180,7 +180,8 @@ class HeunProgram:
         # its graph records
         self.scores = {"body": 2 if cfg.order == 2 else 1, "last": 1}
         self.replayed_scores = 0                   # denoiser calls the replays ran
-        self.launches = {"body": 0, "last": 0}     # Triton launches per replay
+        self.launches = {"body": 0, "last": 0}     # forward kernel launches per replay
+        self.bwd_launches = {"body": 0, "last": 0}  # backward kernel launches per replay
         self.pool_bytes = 0
         self.warm_up_s = 0.0
         self.replays = 0
@@ -239,7 +240,7 @@ class HeunProgram:
         graphs = {}
         for name, fn in steps:
             n0 = self._calls[0]
-            graphs[name], _, self.launches[name], peak = capture(
+            graphs[name], _, (self.launches[name], self.bwd_launches[name]), peak = capture(
                 fn, stream, pool, f"the {self.task} program's '{name}' step at {self.shape}",
                 marks=self.marks[name])
             self.scores[name] = self._calls[0] - n0
@@ -255,7 +256,7 @@ class HeunProgram:
         self.marks[name].replayed()
         self.replays += 1
         self.replayed_scores += self.scores[name]
-        fa.add_replayed_launches(self.launches[name])
+        fa.add_replayed_launches(self.launches[name], self.bwd_launches[name])
 
     # ------------------------------------------------------------------- run
 
@@ -310,10 +311,11 @@ class HeunProgram:
                                f"eagerly on {self.device}")
         return self.static_bytes() + self.pool_bytes
 
-    def launches_per_run(self) -> int:
-        """Triton launches one ``run`` makes: what each capture recorded,
-        times its replays (0 on the CPU)."""
-        return self.launches["body"] * (self.cfg.T - 1) + self.launches["last"]
+    def launches_per_run(self, bwd: bool = False) -> int:
+        """Forward (``bwd``: backward) kernel launches one ``run`` makes:
+        what each capture recorded, times its replays (0 on the CPU)."""
+        n = self.bwd_launches if bwd else self.launches
+        return n["body"] * (self.cfg.T - 1) + n["last"]
 
     def scores_per_run(self) -> int:
         """Score (denoiser) evaluations of one ``run`` (on CUDA, as its
@@ -329,5 +331,7 @@ class HeunProgram:
                 "static_bytes": self.static_bytes(), "pool_bytes": self.pool_bytes,
                 "scores": dict(self.scores), "scores_per_run": self.scores_per_run(),
                 "launches_per_replay": dict(self.launches),
-                "launches_per_run": self.launches_per_run(), "replays": self.replays,
+                "launches_per_run": self.launches_per_run(),
+                "bwd_launches_per_replay": dict(self.bwd_launches),
+                "bwd_launches_per_run": self.launches_per_run(bwd=True), "replays": self.replays,
                 "replayed_scores": self.replayed_scores}

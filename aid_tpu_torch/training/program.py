@@ -31,8 +31,9 @@ raises with the operation that broke it.
 
 On the CPU ``run`` calls the same functions eagerly over the same buffers.
 
-Kernel launches: the Triton kernel's wrapper counts those a capture
-records apart (``fused_adaln.captured_count``); each replay adds them.
+Kernel launches: the Triton kernels' wrappers count those a capture
+records apart (``fused_adaln.captured_counts``, forward and backward); each
+replay adds them.
 
 Tracing (``utils.trace``): the span ``program.build`` around the build
 (``program.warm_up`` and ``program.capture`` inside it; ``report()`` gives
@@ -76,7 +77,8 @@ class StepProgram:
         self.graphs = []            # the step's graph, or the head's and the tail's
         self.carry = None           # the head graph's output, which the hook reduces
         self.out = None
-        self.launches = 0           # Triton launches per replay
+        self.launches = 0           # forward kernel launches per replay
+        self.bwd_launches = 0       # backward kernel launches per replay
         self.warmup_launches = 0
         self.pool_bytes = 0
         self.warm_up_s = 0.0
@@ -111,7 +113,7 @@ class StepProgram:
             self.warm_up_s = warm_up([self._call], stream)
             self.warmup_launches = fa.launch_count() - n0
             if self.hook is None:
-                g, self.out, self.launches, self.pool_bytes = capture(
+                g, self.out, (self.launches, self.bwd_launches), self.pool_bytes = capture(
                     self._call, stream, what=what, marks=self.marks)
                 self.graphs = [g]
             else:
@@ -126,7 +128,8 @@ class StepProgram:
                                                    pool, what=f"the tail of {what}",
                                                    marks=self.marks)
                 self.graphs, self.carry = [ga, gb], carry
-                self.launches, self.pool_bytes = la + lb, max(peak_a, held + peak_b)
+                self.launches, self.bwd_launches = la[0] + lb[0], la[1] + lb[1]
+                self.pool_bytes = max(peak_a, held + peak_b)
         finally:
             if restore is not None:
                 restore()
@@ -157,7 +160,7 @@ class StepProgram:
                 self.graphs[1].replay()
         self.marks.replayed()
         self.replays += 1
-        fa.add_replayed_launches(self.launches)
+        fa.add_replayed_launches(self.launches, self.bwd_launches)
         return fresh(self.out)
 
     # --------------------------------------------------------------- reports
@@ -187,5 +190,6 @@ class StepProgram:
                 "graph_capture_s": self.capture_s - self.warm_up_s,
                 "memory_bytes": self.memory_bytes() if self.graphs else None,
                 "static_bytes": self.static_bytes(), "pool_bytes": self.pool_bytes,
-                "launches_per_replay": self.launches, "warmup_launches": self.warmup_launches,
+                "launches_per_replay": self.launches, "bwd_launches_per_replay": self.bwd_launches,
+                "warmup_launches": self.warmup_launches,
                 "replays": self.replays}

@@ -76,15 +76,15 @@ def capture(fn: Callable, stream: "torch.cuda.Stream", pool=None, what: str = "a
     """Capture ``fn()`` as one CUDA graph on ``stream`` into ``pool`` (a
     private pool when None), with the collector off, inside the span
     ``program.capture``; the phase marks ``fn`` makes are ``marks``'s. Returns
-    (the graph, what ``fn`` returned, the Triton launches the capture
-    recorded, the peak bytes it allocated in the pool; the device's
-    peak-memory statistics are reset to measure it). A capture that fails
-    raises, naming ``what``."""
+    (the graph, what ``fn`` returned, the (forward, backward) fused-kernel
+    launches the capture recorded, the peak bytes it allocated in the pool;
+    the device's peak-memory statistics are reset to measure it). A capture
+    that fails raises, naming ``what``."""
     dev = stream.device
     g = torch.cuda.CUDAGraph()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    n0 = fa.captured_count()
+    n0 = fa.captured_counts()
     collecting = gc.isenabled()
     gc.disable()
     try:
@@ -97,7 +97,8 @@ def capture(fn: Callable, stream: "torch.cuda.Stream", pool=None, what: str = "a
     finally:
         if collecting:
             gc.enable()
-    return g, out, fa.captured_count() - n0, torch.cuda.max_memory_allocated(dev) - base
+    launches = tuple(b - a for a, b in zip(n0, fa.captured_counts()))
+    return g, out, launches, torch.cuda.max_memory_allocated(dev) - base
 
 
 def tensors_key(tensors) -> tuple:

@@ -22,8 +22,11 @@ calls ``replayed()`` after each replay; the milliseconds between each pair
 are those of the group's last replay, and are read only by ``snapshot()``,
 which waits for them.
 
-``snapshot()`` returns both as plain numbers, for the benchmark's readers
-and for an operator; ``idle_gaps(prof)`` reduces a finished
+Counters. ``counter(name, read)`` registers a program counter (a
+function returning a number), such as the fused kernels' launch counts.
+
+``snapshot()`` returns all three as plain numbers, for the benchmark's
+readers and for an operator; ``idle_gaps(prof)`` reduces a finished
 ``torch.profiler`` trace to the device's busy time, its idle share and its
 longest idle gaps, each named by the innermost span the host was in.
 """
@@ -36,7 +39,7 @@ import itertools
 import threading
 import time
 import weakref
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -47,6 +50,7 @@ _LOCK = threading.Lock()
 _SEQ = itertools.count()
 _GROUPS: "weakref.WeakSet[Marks]" = weakref.WeakSet()
 _THREAD = threading.local()     # .capturing: the group whose capture runs in this thread
+_COUNTERS: Dict[str, Callable[[], float]] = {}
 _profiler_on = torch._C._autograd._profiler_enabled
 
 
@@ -152,12 +156,18 @@ def mark(name: str):
     group.pairs.append((name, a, b))
 
 
+def counter(name: str, read: Callable[[], float]) -> None:
+    """Report ``read()`` under ``name`` in every ``snapshot()``."""
+    _COUNTERS[name] = read
+
+
 def snapshot() -> dict:
     """{"spans": {name: {"count", "total_ms", "recent": [[start_ms, end_ms],
     ...]}}, "marks": [{"graph", "replays", "last", "marks": [[name, ms],
-    ...]}, ...]}: every span so far (``recent`` on the host clock, oldest
-    first), and the groups of live programs that were replayed and hold
-    marks (none on the CPU); ``last`` orders their last replays."""
+    ...]}, ...], "counters": {name: value}}: every span so far (``recent``
+    on the host clock, oldest first), the groups of live programs that were
+    replayed and hold marks (none on the CPU; ``last`` orders their last
+    replays), and each registered counter's value."""
     with _LOCK:
         spans = {k: {"count": s.count, "total_ms": s.total_ns / 1e6,
                      "recent": [[a / 1e6, b / 1e6] for a, b in s.recent]}
@@ -165,7 +175,8 @@ def snapshot() -> dict:
     groups = sorted((g for g in list(_GROUPS) if g.pairs and g.replays), key=lambda g: g.last)
     return {"spans": spans,
             "marks": [{"graph": g.graph, "replays": g.replays, "last": g.last,
-                       "marks": g.read()} for g in groups]}
+                       "marks": g.read()} for g in groups],
+            "counters": {k: read() for k, read in _COUNTERS.items()}}
 
 
 def reset() -> None:

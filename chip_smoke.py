@@ -370,22 +370,23 @@ def plain_forced(fa):
 @contextlib.contextmanager
 def built_programs():
     """The report of every sampler program (``sampling.program.HeunProgram``)
-    captured inside, taken when its capture ends (a program itself is not
+    captured inside, taken when its build ends (a program itself is not
     kept: it holds its graph pool). Each one's warm-up ran its two steps
     once, eagerly, so it evaluated the denoiser ``warmup_scores`` times on
     the device."""
     from aid_tpu_torch.sampling import program
-    orig, built = program.HeunProgram._capture, []
+    orig, built = program.HeunProgram.__init__, []
 
-    def capture(self, pool, stream):
-        orig(self, pool, stream)
-        built.append(self.report())
+    def init(self, *a, **k):
+        orig(self, *a, **k)
+        if self.graphs is not None:      # captured (``report()`` needs the build's seconds)
+            built.append(self.report())
 
-    program.HeunProgram._capture = capture
+    program.HeunProgram.__init__ = init
     try:
         yield built
     finally:
-        program.HeunProgram._capture = orig
+        program.HeunProgram.__init__ = orig
 
 
 def warmup_scores(built):
@@ -557,6 +558,71 @@ def time_kernel(torch, fa, shapes, gelu, dt, batches, time_batch=1):
                 l2_bytes=l2)
 
 
+def bwd_errors(torch, fa, x, g, inv, mod, gelu):
+    """The backward kernel and the plain backward against the same formula
+    in float64, on x, g [B, R, C]: for each, the largest |dx - exact| over
+    (one ulp of x's dtype at |exact|, plus an f32 ulp of |g s|) -- at most
+    1 is within tolerance -- and the largest row-sum error over the sum of
+    |dv x| (``q_err``). The plain backward's f32 tanh tail cancels (1 + th
+    and 1 - th^2 near th = -1), so the exact value is the yardstick."""
+    s = (inv.double() * mod.double())[:, None, :]
+    xd = x.double()
+    dv = g.double() * fa._gelu_grad(xd * s, gelu)
+    dx64, q64, scale = dv * s, (dv * xd).sum(1), (dv * xd).abs().sum(1)
+    ulp = 2.0 ** -7 if x.dtype == torch.bfloat16 else 2.0 ** -23
+    floor = (g.double() * s).abs() * 2.0 ** -23
+    out = {}
+    for name, fn in (("kernel", fa._fused_bwd_cuda), ("plain", fa.fused_bwd_plain)):
+        dx, q = fn(x, g, inv, mod, gelu)
+        out[f"{name}_dx_ulps"] = ((dx.double() - dx64).abs()
+                                  / (ulp * dx64.abs() + floor + 1e-300)).max().item()
+        out[f"{name}_q_err"] = ((q.double() - q64).abs() / (scale + 1e-300)).max().item()
+    return out
+
+
+def time_kernel_bwd(torch, fa, shapes, gelu, dt, time_batch=1):
+    """The backward kernel at every launch shape at batch ``time_batch``:
+    checked against the float64 formula beside the plain backward
+    (``bwd_errors``), then kernel and plain device time summed over one
+    differentiated forward's launches, beside the bytes bound (x and g read,
+    dx written once). Inputs not in L2, as ``time_kernel``."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    ms = plain_ms = bytes_ = 0.0
+    errs = {}
+    B = time_batch
+    for (R, C), n in sorted(shapes.items()):
+        inv = torch.rand(B, C, generator=gen, device="cuda") + 0.5
+        mod = torch.rand(B, C, generator=gen, device="cuda") + 0.5
+        step = 3 * B * R * C * torch.finfo(dt).bits // 8   # two reads, one write
+
+        def draw():
+            return torch.randn((B, R, C), generator=gen, device="cuda").to(dt)
+
+        for k, v in bwd_errors(torch, fa, draw(), draw(), inv, mod, gelu).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        sets = [(draw(), draw(), inv, mod, gelu)
+                for _ in range(max(2, math.ceil(3 * l2 / (step * 2 // 3))))]
+        with torch.no_grad():
+            k = graph_ms(torch, fa._fused_bwd_cuda, sets)
+            p = graph_ms(torch, fa.fused_bwd_plain, sets[:2], reps=4)
+        del sets
+        log(json.dumps({"timing": "fused_adaln_bwd launch", "shape": [B, R, C],
+                        "launches": n, "ms": k, "plain_ms": p,
+                        "bytes_bound_ms": step / HBM_BYTES_PER_S * 1e3}))
+        ms += n * k
+        plain_ms += n * p
+        bytes_ += n * step
+    torch.cuda.empty_cache()
+    # one bf16 ulp; in f32 libdevice's erf and the approximate exp and
+    # divide leave a few ulps (tests/test_torch_cuda.py's DX_F32_ULPS)
+    if errs["kernel_dx_ulps"] > (1.0 if dt == torch.bfloat16 else 4.0) \
+            or errs["kernel_q_err"] > 1e-5:
+        fail(f"backward kernel off the float64 formula: {errs}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", bytes=bytes_, launches=sum(shapes.values()), **errs)
+
+
 def compare_denoiser(torch, fa, case, tol, expected, **tags):
     """One denoiser call and one guided score of ``case`` with the kernel
     and with the plain version patched in: relative errors within ``tol``,
@@ -574,17 +640,18 @@ def compare_denoiser(torch, fa, case, tol, expected, **tags):
             fa.reset_launch_count()
             s = case.score(audio, sigma[0])
             torch.cuda.synchronize()
-            out[fused] = (d, s, n_fwd, fa.launch_count())
-    (d, s, n_fwd, n_score), (dp, sp, n0, n1) = out[True], out[False]
+            out[fused] = (d, s, n_fwd, fa.launch_count(), fa.bwd_launch_count())
+    (d, s, n_fwd, n_score, n_bwd), (dp, sp, n0, n1, nb0) = out[True], out[False]
     d_err = ((d - dp).abs().max() / dp.abs().max()).item()
     s_err = ((s - sp).abs().max() / sp.abs().max()).item()
     rec = {"check": "denoiser", **tags, "batch": audio.shape[0],
            "launches_per_forward": n_fwd, "launches_per_guided_score": n_score,
-           "plain_launches": n0 + n1, "denoiser_rel_err": d_err,
+           "bwd_launches_per_guided_score": n_bwd,
+           "plain_launches": n0 + n1 + nb0, "denoiser_rel_err": d_err,
            "guided_score_rel_err": s_err, "tol": tol,
            "finite": bool(torch.isfinite(d).all() and torch.isfinite(s).all())}
     log(json.dumps(rec))
-    if n_fwd != expected or n_score != expected or n0 + n1 != 0:
+    if n_fwd != expected or n_score != expected or n_bwd != expected or n0 + n1 + nb0 != 0:
         fail(f"expected {expected} kernel launches per denoiser call: {rec}")
     if not (rec["finite"] and d_err <= tol and s_err <= tol):
         fail(f"denoiser kernel vs plain: {rec}")
@@ -838,6 +905,9 @@ def phase_serving_44k(torch, fa, np, work, card):
         "timed per denoiser call")
     timing = time_kernel(torch, fa, shapes, "tanh", torch.bfloat16, [1])
     log(json.dumps({"timing": "fused_adaln_fwd per 44 kHz denoiser call", **timing,
+                    "card": card}))
+    timing_bwd = time_kernel_bwd(torch, fa, shapes, "tanh", torch.bfloat16)
+    log(json.dumps({"timing": "fused_adaln_bwd per 44 kHz guided score", **timing_bwd,
                     "card": card}))
 
     log("== phase 5b(c): InpaintingService.from_config(network=cqtdiff_plus_44k, "
@@ -1428,6 +1498,9 @@ def phase_training(torch, fa, np, work, card, shapes):
                          time_batch=TRAIN_BATCH)
     log(json.dumps({"timing": "fused_adaln_fwd per training forward (f32, batch 4)",
                     **timing, "card": card}))
+    timing_bwd = time_kernel_bwd(torch, fa, shapes, "tanh", torch.float32, TRAIN_BATCH)
+    log(json.dumps({"timing": "fused_adaln_bwd per training forward (f32, batch 4)",
+                    **timing_bwd, "card": card}))
     worst = max(worst, timing["max_abs_err"])
     steps = phase_train_steps(torch, fa, np, corpus, work, card)
     entry = phase_train_entry(torch, fa, np, corpus, work, card)
@@ -3419,6 +3492,12 @@ def main():
     log(json.dumps({"timing": "fused_adaln_fwd per denoiser call", **timing,
                     "card": card}))
     log("library_ms: null -- no single PyTorch call computes gelu(x * inv * mod)")
+    log(f"== phase 4, backward: the backward kernel at every launch shape at batch "
+        f"{serve_batch} (the served rows), bf16, tanh, per differentiated denoiser call")
+    with phase_time("4-bwd"):
+        timing_bwd = time_kernel_bwd(torch, fa, shapes, "tanh", torch.bfloat16, serve_batch)
+    log(json.dumps({"timing": "fused_adaln_bwd per guided score", **timing_bwd,
+                    "card": card}))
 
     with phase_time("3b"):
         phase_options(torch, fa, card)
@@ -3515,6 +3594,12 @@ def main():
                                    tools_err),
                 "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                 "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+                "library_ms": None},
+               {"name": "fused_adaln_bwd", "route": "triton",
+                "source": "aid_tpu_torch/ops/fused_adaln.py", "replaces": None,
+                "max_dx_ulps": timing_bwd["kernel_dx_ulps"],
+                "ms": timing_bwd["ms"], "plain_ms": timing_bwd["plain_ms"],
+                "bound_ms": timing_bwd["bound_ms"], "bound_by": "bytes",
                 "library_ms": None}]
     log(f"total {time.time() - t_start:.1f} s")
     log(f"gpu: {card}")

@@ -61,6 +61,118 @@ def test_kernel_matches_plain(cuda, gelu, dtype, shape):
     assert bool(((y.float() - yp.float()).abs() <= tol * yp.float().abs() + 1e-5).all())
 
 
+# Launch shapes (B, R, C) of the backward kernel: every column width of both
+# flagships, the widest and narrowest row counts they launch, ragged row
+# counts (no whole tile, no whole program), batch 1, 2 and 4.
+BWD_SHAPES = [(1, 262144, 64), (2, 131072, 96), (4, 40960, 128), (2, 14336, 256),
+              (1, 2048, 256), (4, 4099, 96), (2, 8191, 128), (1, 77, 64)]
+DX_F32_ULPS = 4.0          # f32 dx: at most 1.48 ulps read on an H100
+NEEDS = {"all": (True, True, True), "dx_inv": (True, True, False),
+         "dx": (True, False, False), "tables": (False, True, True)}
+
+
+def _bwd_inputs(gen, B, R, C, dtype):
+    x = torch.randn((B, R, C), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((B, R, C), generator=gen, device="cuda").to(dtype)
+    inv = torch.rand(B, C, generator=gen, device="cuda") + 0.5
+    mod = torch.rand(B, C, generator=gen, device="cuda") + 0.5
+    return x, g, inv, mod
+
+
+def _bwd_grads(x, g, inv, mod, gelu, need):
+    """(dx, dinv, dmod) of ``_Fused``'s backward for the flags ``need``."""
+    xs, invs, mods = (t.detach().requires_grad_(n) for t, n in zip((x, inv, mod), need))
+    y = fa._Fused.apply(xs, invs, mods, gelu)
+    wrt = [t for t in (xs, invs, mods) if t.requires_grad]
+    got = iter(torch.autograd.grad(y, wrt, g))
+    return [next(got) if n else None for n in need]
+
+
+def _bwd_exact(x, g, inv, mod, gelu):
+    """The plain backward's formula in float64: (dx, q, sum over rows of
+    |dv x|)."""
+    s = (inv.double() * mod.double())[:, None, :]
+    xd = x.double()
+    dv = g.double() * fa._gelu_grad(xd * s, gelu)
+    return dv * s, (dv * xd).sum(1), (dv * xd).abs().sum(1)
+
+
+def _dx_ulps(dx, exact, g, inv, mod):
+    """max |dx - exact| in ulps of dx's dtype at |exact|, over a floor of
+    one f32 ulp of |g s| (where dv cancels to near 0)."""
+    ulp = 2.0 ** -7 if dx.dtype == torch.bfloat16 else 2.0 ** -23
+    floor = (g.double() * (inv.double() * mod.double())[:, None, :]).abs() * 2.0 ** -23
+    return ((dx.double() - exact).abs() / (ulp * exact.abs() + floor + 1e-300)).max().item()
+
+
+@pytest.mark.parametrize("need", sorted(NEEDS))
+@pytest.mark.parametrize("gelu", fa.GELU_VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_matches_plain_backward(cuda, dtype, gelu, need):
+    """The backward kernel against the plain backward's formula, at every
+    shape of ``BWD_SHAPES``, evaluated in float64 (the plain backward's own
+    f32 tanh and sigmoid tails cancel, 1 + th and 1 - th^2 near |th| = 1,
+    and stray up to ~4.6 f32 ulps, so the exact value is the yardstick): dx
+    within one ulp of x's dtype in bf16, within DX_F32_ULPS f32 ulps in
+    f32 (libdevice's erf and the approximate exp and divide), never farther
+    than the plain backward plus one ulp; the row sums within 1e-5 of the
+    sum of |dv x| (another order of the same f32 terms). One launch a
+    backward, none counted as a forward launch."""
+    flags = NEEDS[need]
+    for B, R, C in BWD_SHAPES:
+        x, g, inv, mod = _bwd_inputs(cuda, B, R, C, dtype)
+        fwd, bwd = fa.launch_count(), fa.bwd_launch_count()
+        dx, dinv, dmod = _bwd_grads(x, g, inv, mod, gelu, flags)
+        assert fa.launch_count() == fwd + 1 and fa.bwd_launch_count() == bwd + 1
+        dx64, q64, scale = _bwd_exact(x, g, inv, mod, gelu)
+        if flags[0]:
+            assert dx.dtype == dtype and dx.shape == x.shape
+            got = _dx_ulps(dx, dx64, g, inv, mod)
+            plain = _dx_ulps(fa.fused_bwd_plain(x, g, inv, mod, gelu)[0], dx64, g, inv, mod)
+            bound = 1.0 if dtype == torch.bfloat16 else DX_F32_ULPS
+            assert got <= bound and got <= plain + 1.0, (B, R, C, got, plain)
+        else:
+            assert dx is None
+        for got, table in ((dinv, mod), (dmod, inv)):
+            if got is None:
+                continue
+            assert got.dtype == torch.float32 and got.shape == (B, C)
+            ref = q64 * table.double()
+            assert bool(((got.double() - ref).abs()
+                         <= 1e-5 * scale * table.double() + 1e-30).all()), (B, R, C)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_is_deterministic(cuda, dtype):
+    """Two backward runs on the same inputs are bit-identical: the row sums
+    are taken in one fixed order, with no atomics."""
+    for B, R, C in BWD_SHAPES[:4]:
+        x, g, inv, mod = _bwd_inputs(cuda, B, R, C, dtype)
+        a = fa._fused_bwd_cuda(x, g, inv, mod, "tanh")
+        b = fa._fused_bwd_cuda(x, g, inv, mod, "tanh")
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_bwd_kernel_replayed_in_a_graph_equals_eager(cuda):
+    """The backward captured in a CUDA graph and replayed gives the eager
+    run's dx and row sums bit for bit; the capture's launch is counted when
+    replayed (``captured_counts``, ``add_replayed_launches``)."""
+    from aid_tpu_torch.utils import graphs
+    x, g, inv, mod = _bwd_inputs(cuda, 2, 14336, 256, torch.bfloat16)
+    ref = fa._fused_bwd_cuda(x, g, inv, mod, "tanh")
+    stream = graphs.capture_stream("cuda")
+    fn = lambda: fa._fused_bwd_cuda(x, g, inv, mod, "tanh")    # noqa: E731
+    graphs.warm_up([fn], stream)
+    graph, out, launches, _ = graphs.capture(fn, stream, what="the backward kernel")
+    assert launches == (0, 1)
+    fa.reset_launch_count()
+    graph.replay()
+    fa.add_replayed_launches(*launches)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert (fa.launch_count(), fa.bwd_launch_count()) == (0, 1)
+
+
 def test_tiny_denoiser_launches_once_per_layer(cuda, monkeypatch):
     net = tunet.UnetCQT(get_cqt(3, 8, 4096.0, 2048), (8, 16, 16), (1, 2, 2),
                         (0, 1, 1, 1), dict(num_heads=2, use_rel_pos=True), emb_dim=32,
@@ -113,8 +225,11 @@ def test_tiny_training_steps_on_the_card_match_the_cpu(cuda, tmp_path):
         # on the card the step program's build runs one more step as its warm-up
         res[dev] = (fa.launch_count(), (2 + tr.step_programs_built) * 2 * per_fwd,
                     [(float(m["loss"]), float(m["grad_norm"])) for m in metrics],
-                    [p.detach().cpu() - a for p, a in zip(tr.params, p0)])
+                    [p.detach().cpu() - a for p, a in zip(tr.params, p0)],
+                    fa.bwd_launch_count())
     assert res["cpu"][0] == 0 and res["cuda"][0] == res["cuda"][1]
+    # one backward launch for two forward ones (the forward and its recomputation)
+    assert res["cpu"][4] == 0 and 2 * res["cuda"][4] == res["cuda"][1]
     np.testing.assert_allclose(res["cuda"][2], res["cpu"][2], rtol=1e-4)
     num = sum(float((a - b).double().pow(2).sum()) for a, b in zip(res["cuda"][3], res["cpu"][3]))
     den = sum(float(b.double().pow(2).sum()) for b in res["cpu"][3])
@@ -152,6 +267,8 @@ def test_tiny_program_graphs_equal_eager(cuda):
     assert prog.scores == {"body": 2, "last": 1}
     assert prog.replayed_scores == prog.scores_per_run() == 2 * (s.cfg.T - 1) + 1
     assert fa.launch_count() == prog.launches_per_run() > 0
+    # every guided score differentiates one forward: a backward launch per forward one
+    assert fa.bwd_launch_count() == prog.launches_per_run(bwd=True) == prog.launches_per_run()
     assert prog.memory_bytes() > prog.static_bytes()
     smooth = s._smooth_mask(mask)
     proj = degr.inpainting_projector(y, smooth)
@@ -227,6 +344,8 @@ def test_tiny_task_programs_graphs_equal_eager(cuda, task):
     got = _task_call(s, task, x, torch.Generator(device="cuda").manual_seed(1), noise)
     torch.cuda.synchronize()
     assert prog.graphs is not None and fa.launch_count() == prog.launches_per_run() > 0
+    assert fa.bwd_launch_count() == prog.launches_per_run(bwd=True)
+    assert (prog.launches_per_run(bwd=True) == 0) == (task == "unconditional")
     assert prog.memory_bytes() > prog.static_bytes()
     s.programs_enabled = lambda: False
     ref = _task_call(s, task, x, torch.Generator(device="cuda").manual_seed(1), noise)
@@ -283,6 +402,7 @@ def _replayed_against_eager(tr, graphs=1):
     m = tr.train_step(audio, fs)
     torch.cuda.synchronize()
     assert tr.step_programs_built == 1 and fa.launch_count() == prog.launches
+    assert 2 * fa.bwd_launch_count() == 2 * prog.bwd_launches == prog.launches
     assert prog.replays == 2
     assert abs(float(m["loss"]) - float(eager["loss"])) <= 1e-5 * abs(float(eager["loss"]))
     num = sum(float((a.detach() - b).double().pow(2).sum()) for a, b in zip(tr.params, p_eager))
@@ -388,7 +508,7 @@ def test_no_collection_runs_during_a_capture(cuda):
         return torch.full((8,), 3.0, device="cuda") * 2
 
     g, out, launches, peak = graphs.capture(fn, graphs.capture_stream("cuda"), what="a probe")
-    assert seen == [False] and gc.isenabled() and dead() is not None and launches == 0
+    assert seen == [False] and gc.isenabled() and dead() is not None and launches == (0, 0)
     g.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, torch.full((8,), 6.0, device="cuda")) and peak > 0

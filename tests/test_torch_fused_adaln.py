@@ -125,3 +125,89 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(data, kind):
     gelu = "relu" if kind == "gelu" else "erf"
     with pytest.raises((ValueError, TypeError)):
         fa.norm_adaln_gelu(x, std, gamma, aff, EPS, G, gelu=gelu)
+
+
+def test_cpu_tensor_takes_plain_backward(data, monkeypatch):
+    """A CPU tensor's backward is the plain version and launches nothing; the
+    plain version forms dv * x once for both table gradients."""
+    calls = []
+    plain = fa.fused_bwd_plain
+
+    def spy(*a):
+        calls.append(a[-2:])
+        return plain(*a)
+
+    monkeypatch.setattr(fa, "fused_bwd_plain", spy)
+    x, gamma, aff = (torch.from_numpy(a).requires_grad_(True) for a in data)
+    fa.reset_launch_count()
+    y = fa.norm_adaln_gelu(x, fa.group_std(x, G), gamma, aff, EPS, G, gelu="tanh")
+    torch.autograd.grad(y.sum(), (x, gamma, aff))
+    assert calls == [(True, True)]
+    assert (fa.launch_count(), fa.bwd_launch_count()) == (0, 0)
+
+
+def test_cuda_tensor_never_takes_plain_backward(monkeypatch):
+    """A CUDA tensor goes to the kernel's wrapper, never to the plain
+    version (no fallback); another device raises."""
+    seen = []
+    monkeypatch.setattr(fa, "fused_bwd_plain", lambda *a: pytest.fail("plain backward"))
+    monkeypatch.setattr(fa, "_fused_bwd_cuda", lambda *a: seen.append(a[-2:]) or (None, None))
+
+    class Cuda:
+        device = torch.device("cuda")
+
+    fa._fused_backward(Cuda(), None, None, None, "tanh", True, False)
+    assert seen == [(True, False)]
+    with pytest.raises(ValueError):
+        fa._fused_backward(torch.empty(1, device="meta"), None, None, None, "tanh", True, True)
+
+
+@pytest.mark.parametrize("gelu", fa.GELU_VARIANTS)
+def test_plain_backward_matches_autograd_of_plain_forward(data, gelu):
+    """``fused_bwd_plain`` (the kernel's plain version): dx and the row sum
+    q, with dinv = q mod and dmod = q inv, equal autograd through
+    ``fused_plain``."""
+    x = torch.from_numpy(data[0]).reshape(2, 128, 16)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(0))
+    inv = (torch.rand(2, 16, generator=torch.Generator().manual_seed(1)) + 0.5)
+    mod = (torch.rand(2, 16, generator=torch.Generator().manual_seed(2)) + 0.5)
+    t = [a.clone().requires_grad_(True) for a in (x, inv, mod)]
+    want = torch.autograd.grad(fa.fused_plain(*t, gelu), t, g)
+    dx, q = fa.fused_bwd_plain(x, g, inv, mod, gelu)
+    for a, b in zip((dx, q * mod, q * inv), want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert fa.fused_bwd_plain(x, g, inv, mod, gelu, need_q=False)[1] is None
+    assert fa.fused_bwd_plain(x, g, inv, mod, gelu, need_dx=False)[0] is None
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("B", [1, 2, 4])
+@pytest.mark.parametrize("R,C", [(262144, 64), (131072, 96), (14336, 256), (2048, 256),
+                                 (4099, 96), (77, 64), (1, 48)])
+def test_bwd_tile_covers_the_rows_once(B, R, C, itemsize):
+    """The backward's grid: power-of-two blocks that hold C, programs that
+    each own at least one row and together every row once, and no more
+    programs across the batch than the grid aims at (unless one a tile)."""
+    block_r, block_c, per_prog, P, warps = fa._bwd_tile(B, R, C, itemsize)
+    rows = per_prog * block_r
+    assert block_c >= C and block_c & (block_c - 1) == 0 and block_r & (block_r - 1) == 0
+    assert (P - 1) * rows < R <= P * rows
+    assert B * P <= max(fa._BWD_PROGRAMS, B) or per_prog == 1
+    assert warps in (1, 2, 4, 8, 16) and fa._bwd_tile(B, R, C, itemsize)[3] == P
+
+
+def test_launch_counts_apart_and_in_the_trace_snapshot():
+    """The forward's and the backward's launches are counted apart (a replay
+    adds both what its capture recorded) and reported by
+    ``trace.snapshot()``; ``reset_launch_count`` zeroes both."""
+    from aid_tpu_torch.utils import trace
+    fa.reset_launch_count()
+    fa.add_replayed_launches(90, 90)
+    fa.add_replayed_launches(180)
+    assert (fa.launch_count(), fa.bwd_launch_count()) == (270, 90)
+    counters = trace.snapshot()["counters"]
+    assert counters["fused_adaln.launches"] == 270
+    assert counters["fused_adaln.bwd_launches"] == 90
+    assert fa.captured_counts() == (0, 0)
+    fa.reset_launch_count()
+    assert (fa.launch_count(), fa.bwd_launch_count()) == (0, 0)
