@@ -1,14 +1,18 @@
 """The benchmark's runner: finds a cell's files by name, runs its set-up, its
 measured window of whole units and, with ``--trace 1``, a profile of some
 of those units; then decides ``correct`` against the plain reference and
-prints the result's line.
+prints the result's line. A cell over several cards runs as that many
+processes, one a card (``ranks.py``): rank 0 owns the window, profiles and
+prints; the per-layer readings are rank 0's.
 
 Files, each found by name:
   workloads/<cell>.json    {"config", "traffic", "chips", "limits"}
-  configs/<config>.json    the configuration (config words, sizes, settings)
-  traffic/<traffic>.json   {"kind", the kind's parameters}
+  configs/<config>.json    the configuration (its architecture, config words, sizes, settings)
+  traffic/<traffic>.json   {"kind", the kind's parameters, optionally "family"}
   kinds/<kind>.py          set-up, one unit of work, the output check
   metrics/<metric>.py      read(ctx) -> number or None, one per-layer metric
+  reference/<architecture>.py, work/<architecture>.py
+                           the plain reference net, the work of its forward
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ import json
 import os
 import sys
 import time
-from typing import Dict, List, Optional
+import traceback
+from typing import Dict, List, Optional, Sequence
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aid_tpu")
@@ -39,6 +44,19 @@ def load_module(path: str, name: str):
 
 def kind_module(kind: str):
     return load_module(os.path.join(HERE, "kinds", f"{kind}.py"), f"bench_kind_{kind}")
+
+
+def twin(name: str, family: str):
+    """(``UNIT``, ``read``) of a reader that reads as ``metrics/<name>.py``
+    does, in the cells of ``family`` alone: one quantity under a name of
+    each family, where the families' cells report different end-to-end
+    metrics (``mfu.dp`` reads as ``mfu.train``)."""
+    base = load_module(os.path.join(HERE, "metrics", f"{name}.py"), "bench_twin_" + name.replace(".", "_"))
+    own = name.rsplit(".", 1)[1]
+
+    def read(ctx):
+        return base.read({**ctx, "family": own}) if ctx["family"] == family else None
+    return base.UNIT, read
 
 
 def metric_readers() -> Dict[str, object]:
@@ -94,7 +112,7 @@ class Window:
 def device_info(device, chips: int, peak: int) -> dict:
     import torch
     if device.type != "cuda":
-        return {"platform": device.type, "kind": "cpu", "count": 1, "memory_peak_bytes": peak}
+        return {"platform": device.type, "kind": "cpu", "count": chips, "memory_peak_bytes": peak}
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": chips,
             "memory_peak_bytes": peak}
 
@@ -146,13 +164,15 @@ class PeakMemory:
 def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device,
              t_start: float, cell: Optional[dict] = None, cfg: Optional[dict] = None,
              mix: Optional[dict] = None, control: bool = False,
-             reference_cache: Optional[dict] = None) -> dict:
+             reference_cache: Optional[dict] = None, group=None) -> Optional[dict]:
     """One run of a cell; returns the result's line as a dict (``checks``
     last). ``cell``, ``cfg`` and ``mix`` replace the files of that name
     (the tests' tiny sizes). ``control`` puts the configuration's
     lower-precision path in the program's place, and ``reference_cache``
     keeps the reference's outputs across runs of one process (both for
-    ``calibrate.py``)."""
+    ``calibrate.py``). ``group``: this process's ``ranks.Ranks`` in a cell
+    over several cards; a rank other than 0 follows rank 0's window,
+    reports to it and returns None."""
     from devtrace import Profile
     from work import peaks
 
@@ -160,10 +180,16 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device,
     cfg = cfg if cfg is not None else load_json("configs", cell["config"])
     mix = mix if mix is not None else load_json("traffic", cell["traffic"])
     kind = kind_module(mix["kind"])
+    # the family the cell's metrics belong to: the kind's, or the one its
+    # traffic names; a family of its own reports each end-to-end metric as
+    # ``<metric>.<family>`` and its own readers
+    family = mix.get("family", kind.FAMILY)
     memory = PeakMemory(device)
     bench = kind.Bench(cfg, mix, int(seed), device, control=control)
     bench.reference_cache = reference_cache
 
+    lead = group is None or group.rank == 0
+    trace = trace and lead
     window = Window(seconds, at_least=1 + (kind.TRACE_UNITS if trace else 0))
     traced = range(1, 1 + kind.TRACE_UNITS) if trace else range(0)
     profile = Profile(device) if trace else None
@@ -171,7 +197,8 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device,
     failed = 0
     setup_s = None
     i = 0
-    while window.more(time.perf_counter()):
+    while group.agree(i, window.more(time.perf_counter())) if group is not None \
+            else window.more(time.perf_counter()):
         if i == traced.start and profile is not None:
             before = bench.counters()
             profile.start()
@@ -182,8 +209,13 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device,
             with span("unit"):
                 bench.unit(i)
         except Exception as e:      # a unit that fails is counted and ends the window
+            if not lead:            # a rank's failure ends the run (rank 0 sees it exit)
+                raise
             print(f"unit {i} failed: {e!r}", file=sys.stderr)
             failed += 1
+            died = group.abort() if group is not None else None
+            if died:
+                raise RuntimeError(f"a rank died: {died}") from e
             break
         window.add(start, time.perf_counter())
         i += 1
@@ -194,11 +226,23 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device,
         profile.stop()
         after = bench.counters()
     peak = memory.close()
+    if not lead:
+        group.report(peak, window.count)
+        return None
     attempted = window.count + failed
+    out_of_step = None
+    if group is not None:       # every rank's peak and units, the children gone
+        rank_peaks, units = group.gather()
+        peak = max([peak] + rank_peaks)
+        out_of_step = sum(u != window.count for u in units) if not failed else group.world - 1
+        gone = group.close()
+        if gone:
+            raise RuntimeError(f"a rank ended badly: {gone}")
 
     metrics = {}
     if trace:
-        ctx = dict(family=kind.FAMILY, cfg=cfg, mix=mix, bench=bench,
+        ctx = dict(family=family, cfg=cfg, mix=mix, bench=bench,
+                   chips=int(cell.get("chips", 1)),
                    profile=profile.summary() if profile is not None and after is not None else None,
                    counters={k: after[k] - before[k] for k in after} if after else {},
                    built=bench.built())
@@ -208,13 +252,16 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device,
                 metrics[name] = {"value": float(value), "unit": reader.UNIT}
     else:
         if window.count:
-            metrics.update(bench.end_to_end(window.count, window.wall))
+            for name, m in bench.end_to_end(window.count, window.wall).items():
+                metrics[name if family == kind.FAMILY else f"{name}.{family}"] = m
         metrics["setup_s"] = {"value": float(setup_s if setup_s is not None else time.perf_counter() - t_start),
                               "unit": "s"}
 
     limits = cell.get("limits", {})
     t_check = time.perf_counter()
     checks = bench.check(limits) if window.count else {}
+    if out_of_step is not None:     # no rank ran a unit that another skipped
+        checks["ranks_out_of_step"] = {"value": out_of_step, "limit": 0}
     units = [round(e - s, 4) for s, e in zip(window.starts, window.ends)]
     print(f"set-up {setup_s or 0.0:.3f} s, window {window.count} units in {window.wall:.3f} s "
           f"(units {units[:8]}{' ...' if len(units) > 8 else ''}), "
@@ -243,18 +290,49 @@ def parse(argv):
     return p.parse_args(argv)
 
 
-def main(argv, t_start: float) -> int:
+def main(argv, t_start: float, entry: Sequence[str], device=None, control: bool = False) -> int:
+    """One run from the command line; returns the exit code. ``entry``: what
+    follows the interpreter in the command that started this run (a cell
+    over several cards starts its other ranks with it and ``argv``);
+    ``device`` and ``control`` serve ``calibrate.py`` and the tests (the
+    CPU in place of the card, the control in place of the program)."""
     args = parse(argv)
     cell = load_json("workloads", args.workload)
     import torch
     chips = int(cell.get("chips", 1))
-    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
-        print(f"the cell {args.workload} needs {chips} CUDA device(s); found "
-              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
-        return 2
+    if device is None:
+        if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+            print(f"the cell {args.workload} needs {chips} CUDA device(s); found "
+                  f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
+            return 2
+        device = torch.device("cuda")
     torch.set_num_threads(4)
-    line = run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
-                    torch.device("cuda"), t_start, cell=cell)
+    if chips == 1:
+        return _report(run_cell(args.workload, args.seed, args.seconds, bool(args.trace), device,
+                                t_start, cell=cell, control=control))
+    import port
+    import ranks
+    group = ranks.Ranks.join() if ranks.is_child() else \
+        ranks.Ranks.launch(chips, [sys.executable, *entry, *argv])
+    code = 1
+    try:
+        device = group.device(device)
+        port.init_group(device)
+        line = run_cell(args.workload, args.seed, args.seconds, bool(args.trace), device, t_start,
+                        cell=cell, control=control, group=group)
+        code = 0 if line is None else _report(line)
+    except Exception:               # the run ends here, with every rank
+        traceback.print_exc()
+    finally:
+        group.abort()               # rank 0: any child still there
+        ranks.finish(code)          # not waiting on a process group whose peers are gone
+    return code
+
+
+def _report(line: dict) -> int:
+    """Print the numbers compared (last on standard error) and the result's
+    line (last on standard output); 3, and no line, where the run loaded a
+    module the benchmark may not load."""
     found = forbidden_modules()
     if found:
         print(f"the run loaded {found}, which the benchmark may not load", file=sys.stderr)

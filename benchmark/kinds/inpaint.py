@@ -80,10 +80,10 @@ class Bench:
 
         def reference():
             d, s = settings.sampling(self.cfg)
-            net, cqt = port.reference_net(self.cfg, inputs.substream(self.seed, 1), self.device)
+            net, hpf = port.reference_net(self.cfg, inputs.substream(self.seed, 1), self.device)
             net.requires_grad_(False)
             with port.Exact32():
-                return ref_sampling.inpaint(d, s, net, cqt, audio, mask, rseed, self.rows, self.device)
+                return ref_sampling.inpaint(d, s, net, hpf, audio, mask, rseed, self.rows, self.device)
 
         ref = port.cached(self.reference_cache, (self.seed, k), reference)
         worst = 0.0

@@ -7,10 +7,21 @@ norm per parameter (from Adam's first moment after one step), and each
 parameter's change and its EMA's change after ``FIRST`` steps. The window
 goes on from there with the same trainer.
 
-Traffic parameters: ``pool`` (distinct host batches, served in turn).
+Under a process group (a cell over several cards) every rank builds the
+same trainer, which splits the role's global batch ``exp.batch`` over the
+ranks (the dp step: DDP's two graphs around the gradient all-reduce); a
+pool's global batch gives rank r its rows r B/n ... (r + 1) B/n - 1. Rank
+0's first steps, which are every rank's (the step is the global batch's),
+are held against the reference at the global batch.
+
+Traffic parameters: ``pool`` (distinct global host batches, served in
+turn), ``role`` (the configuration file's training role; ``training``
+where none is named) and, for the harness, ``family`` (``dp``: the cell
+reports ``train_step_ms.dp`` and the ``.dp`` readers).
 """
 from __future__ import annotations
 
+import sys
 import tempfile
 from typing import Dict, List
 
@@ -38,8 +49,11 @@ def _change(now: List[torch.Tensor], then: List[torch.Tensor]) -> List[float]:
 
 
 def median_gap(prog: Dict[str, float], ref: Dict[str, float], names) -> float:
-    """The median over ``names`` of |program's norm - reference's| / reference's."""
-    return float(np.median([abs(prog[n] - ref[n]) / ref[n] for n in names]))
+    """The median over ``names`` of |program's norm - reference's| / reference's.
+    A leaf that the reference leaves unmoved (each weight's change under half
+    a float32 ulp of it, as the learning rate's first ramp-up steps can make
+    it) reads 0 where the program leaves it unmoved too, a wide gap where not."""
+    return float(np.median([abs(prog[n] - ref[n]) / max(ref[n], 1e-30) for n in names]))
 
 
 def leaf_gap(prog: Dict[str, float], ref: Dict[str, float], names) -> float:
@@ -53,24 +67,29 @@ class Bench:
     def __init__(self, cfg: dict, mix: dict, seed: int, device, control: bool = False):
         from aid_tpu_torch import setup as tsetup
         self.cfg, self.seed, self.device = cfg, seed, device
-        args = port.compose(cfg, "training", control)
-        self.tmp = tempfile.TemporaryDirectory()
-        args["model_dir"] = self.tmp.name
+        self.role = mix.get("role", "training")
+        self.rank, self.ranks = port.group()
+        args = port.compose(cfg, self.role, control)
         args.logging["print_model_summary"] = False
         args.logging["save_model"] = False
         self.trainer_seed = inputs.substream(seed, 7)
         args.exp["seed"] = self.trainer_seed
         self.B, self.L = int(args.exp.batch), int(args.exp.audio_len)
-        self.fs = np.full((self.B,), int(args.exp.sample_rate), np.int64)
+        if self.B % self.ranks:
+            raise ValueError(f"a global batch of {self.B} does not split over {self.ranks} ranks")
+        self.rows = self.B // self.ranks
+        self.fs = np.full((self.rows,), int(args.exp.sample_rate), np.int64)
         net = port.network(args, cfg, inputs.substream(seed, 1), device, trainable=True)
-        self.trainer = t = tsetup.setup_trainer(args, network=net,
-                                                diff_params=tsetup.setup_diff_parameters(args))
+        with tempfile.TemporaryDirectory() as tmp:      # the trainer makes it; nothing is written
+            args["model_dir"] = tmp
+            self.trainer = t = tsetup.setup_trainer(args, network=net,
+                                                    diff_params=tsetup.setup_diff_parameters(args))
         t.init_state()
         self.batches = inputs.train_batches(int(mix["pool"]), self.B, self.L, inputs.substream(seed, 8))
         p0 = [p.detach().clone() for p in t.params]
         losses = []
         for k in range(FIRST):
-            losses.append(t.train_step(self.batches[k], self.fs)["loss"])
+            losses.append(t.train_step(self._rows(k), self.fs)["loss"])
             if k == 0:
                 grad = [n / (1.0 - t.b1) for n in _norms(t.mu)]
         self.first = {"loss": [float(v) for v in losses],
@@ -79,8 +98,12 @@ class Bench:
                       "ema": dict(zip(t.names, _change(t.ema, p0)))}
         del p0
 
+    def _rows(self, k: int) -> np.ndarray:
+        """This rank's rows of the pool's global batch ``k``."""
+        return self.batches[k][self.rank * self.rows:(self.rank + 1) * self.rows]
+
     def unit(self, i: int) -> None:
-        self.trainer.train_step(self.batches[(FIRST + i) % len(self.batches)], self.fs)
+        self.trainer.train_step(self._rows((FIRST + i) % len(self.batches)), self.fs)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -90,7 +113,7 @@ class Bench:
 
     def built(self) -> Dict[str, float]:
         return {"capture_s": sum(p.capture_s for p in self.trainer._step_programs.values()),
-                "rows": self.B, "itemsize": torch.finfo(self.trainer.net.dtype).bits // 8}
+                "rows": self.rows, "itemsize": torch.finfo(self.trainer.net.dtype).bits // 8}
 
     def end_to_end(self, count: int, wall: float) -> dict:
         return {"train_step_ms": {"value": wall / count * 1e3, "unit": "ms"}}
@@ -99,11 +122,14 @@ class Bench:
         """The first ``FIRST`` steps against the float32 reference's."""
         del self.trainer
         port.free(self.device)
-        self.tmp.cleanup()
         names, out, change, ema = port.cached(self.reference_cache, self.seed, self._reference)
         grad = dict(zip(names, out[0]["grad_norms"]))
         med = float(np.median(list(grad.values())))
         moving = [n for n in names if grad[n] >= 1e-3 * med]
+        still = [n for n in moving if change[n] == 0.0]
+        if still:
+            print(f"leaves the reference leaves unmoved: {len(still)} of {len(moving)}, "
+                  f"{still[:6]}", file=sys.stderr)
         loss = max(abs(a - r["loss"]) / abs(r["loss"]) for a, r in zip(self.first["loss"], out))
         nums = {"loss_rel_err": loss,
                 "grad_leaf_gap": leaf_gap(self.first["grad"], grad, names),
@@ -114,13 +140,13 @@ class Bench:
     def _reference(self):
         """(names, each step's loss and gradient norms, each parameter's
         change, its EMA's change) of the float32 reference's first ``FIRST``
-        steps (the EMA starts at the parameters)."""
-        d, tr = settings.training(self.cfg)
+        steps at the global batch (the EMA starts at the parameters)."""
+        d, tr = settings.training(self.cfg, self.role)
         net, _ = port.reference_net(self.cfg, inputs.substream(self.seed, 1), self.device)
         named = list(net.named_parameters())
         names = [n for n, _ in named]
         p0 = [p.detach().clone() for _, p in named]
-        ref = Reference(net, d, tr, self.B, self.trainer_seed, self.device)
+        ref = Reference(net, d, tr, self.B, self.trainer_seed, self.device, ranks=self.ranks)
         with port.Exact32():
             out = [ref.step(torch.from_numpy(self.batches[k]).to(self.device)) for k in range(FIRST)]
         return (names, out, dict(zip(names, _change([p for _, p in named], p0))),

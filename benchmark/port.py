@@ -1,21 +1,30 @@
 """The benchmark's one door into the program under test, ``aid_tpu_torch``:
 its configuration composed from a configuration file's words and held to
-the file's sizes, and its network built with the benchmark's weights.
+the file's sizes, its network built with the benchmark's weights, and its
+process group for a cell over several cards. The architecture a
+configuration file states is found by name: ``reference/<architecture>.py``
+gives the weights' shapes and the plain reference net.
 """
 from __future__ import annotations
 
 import gc
+import importlib
 from typing import Dict, List
 
 import torch
 
-from reference.unet import param_shapes
-
 import inputs
 
 
+def architecture(cfg: dict):
+    """``reference/<architecture>.py`` of the configuration: ``param_shapes(network)``
+    and ``build(cfg, device) -> (net, output filter or None)``."""
+    return importlib.import_module("reference." + cfg["architecture"])
+
+
 def compose(cfg: dict, role: str, control: bool = False):
-    """The program's config tree for ``role`` ("serving" or "training"): the
+    """The program's config tree for ``role`` (``serving``, ``training`` or
+    another training role of the file, such as ``training_dp4``): the
     file's words, then the role's. Every size and setting the file states
     (``network``, ``exp`` and the role's ``stated`` groups) must be what the
     program composed. ``control`` adds the role's ``control`` words, the
@@ -42,8 +51,25 @@ def _same(stated, composed, where: str) -> None:
                          f"the program composed {composed!r}")
 
 
+def group():
+    """(rank, ranks) of the process group; (0, 1) without one."""
+    import torch.distributed as dist
+    return (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+
+
+def init_group(device) -> None:
+    """The program's process group for a cell over several cards, started by
+    the port's ``parallel.mesh.init_distributed`` from the launcher's
+    environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``PORT``) as
+    under ``torchrun python -m aid_tpu_torch.train``; NCCL where each rank
+    has its own card, gloo on the CPU. Its collectives keep the process
+    group's default timeout."""
+    from aid_tpu_torch.parallel import mesh
+    mesh.init_distributed(True, device=device)
+
+
 def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    return inputs.weights(param_shapes(cfg["network"]), seed, device)
+    return inputs.weights(architecture(cfg).param_shapes(cfg["network"]), seed, device)
 
 
 def network(args, cfg: dict, seed: int, device, trainable: bool):
@@ -88,16 +114,11 @@ def cached(cache, key, compute):
 
 
 def reference_net(cfg: dict, seed: int, device):
-    """The plain float32 reference U-Net with the same weights."""
-    from reference.cqt import CQT
-    from reference.unet import UNet
-    n, e = cfg["network"], cfg["exp"]
-    cqt = CQT(int(n["cqt"]["num_octs"]), int(n["cqt"]["bins_per_oct"]), float(e["sample_rate"]),
-              int(e["audio_len"]), ("kaiser", float(n["cqt"]["beta"])))
-    with torch.device(device):
-        net = UNet(n, cqt)
+    """(the plain float32 reference net with the same weights, its output
+    filter or None)."""
+    net, hpf = architecture(cfg).build(cfg, device)
     net.load_state_dict(make_weights(cfg, seed, device))
-    return net, cqt
+    return net, hpf
 
 
 class ScoreCount:

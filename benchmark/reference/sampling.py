@@ -13,7 +13,7 @@ no graphs, no kernels; imports nothing of the port.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,12 +49,14 @@ def denoise(d: dict, net, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------ sampling
 
 
-def score_fn(d: dict, s: dict, net, hpf: Callable, y, mask, smooth):
+def score_fn(d: dict, s: dict, net, hpf: Optional[Callable], y, mask, smooth):
     """The score of one step, guided by ||y - m x_hat|| with the
-    data-consistency projection smooth y + (1 - smooth) x."""
+    data-consistency projection smooth y + (1 - smooth) x; the estimate
+    goes through the net's output filter ``hpf`` where it has one and the
+    sampler's ``filter_out_cqt_DC_Nyq`` is on."""
     def x_hat(x, t):
         xh = denoise(d, net, x, t)
-        return hpf(xh) if s["filter_out_cqt_DC_Nyq"] else xh
+        return hpf(xh) if hpf is not None and s["filter_out_cqt_DC_Nyq"] else xh
 
     def guided(x, t):
         L = x[0].numel()
@@ -139,11 +141,11 @@ def plan(mask: np.ndarray, L: int, rows: int) -> List[List[Tuple[int, int, int]]
     return [jobs[i:i + rows] for i in range(0, len(jobs), rows)]
 
 
-def inpaint(d: dict, s: dict, net, cqt, audio: np.ndarray, mask: np.ndarray, seed: int,
-            rows: int, device) -> np.ndarray:
+def inpaint(d: dict, s: dict, net, hpf: Optional[Callable], audio: np.ndarray, mask: np.ndarray,
+            seed: int, rows: int, device) -> np.ndarray:
     """The restored request: every round's windows sampled together with the
     round's noise, each written back inside its own gap; observed samples
-    are the input's."""
+    are the input's. ``hpf``: the net's output filter, or None."""
     L = int(s["audio_len"])
     audio = np.asarray(audio, np.float32)
     out, live = audio.copy(), np.asarray(mask, np.float32).copy()
@@ -158,7 +160,7 @@ def inpaint(d: dict, s: dict, net, cqt, audio: np.ndarray, mask: np.ndarray, see
         m = torch.from_numpy(mb).to(device)
         sm = torch.from_numpy(sm).to(device)
         prior, churn = draw(tuple(y.shape), s["T"], int(seeds.integers(2 ** 62)), device)
-        rec = heun(d, s, score_fn(d, s, net, cqt.apply_hpf_DC, y, m, sm), prior, churn)
+        rec = heun(d, s, score_fn(d, s, net, hpf, y, m, sm), prior, churn)
         rec = rec.float().cpu().numpy()
         for r, (w0, a, b) in enumerate(rnd):
             out[w0 + a:w0 + b] = rec[r, a:b]

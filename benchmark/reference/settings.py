@@ -27,9 +27,10 @@ def sampling(cfg: dict) -> Tuple[dict, dict]:
     return _edm(t["diff_params"]), s
 
 
-def training(cfg: dict) -> Tuple[dict, dict]:
-    """(EDM parameters, trainer settings) of the training role."""
-    st = cfg["training"]["stated"]
+def training(cfg: dict, role: str = "training") -> Tuple[dict, dict]:
+    """(EDM parameters, trainer settings) of a training role (``training``,
+    or one over several ranks such as ``training_dp4``)."""
+    st = cfg[role]["stated"]
     e = st["exp"]
     aug = e["augmentations"]
     if int(e["num_accumulation_rounds"]) != 1 or aug["gain"]["use"] or aug["pitch_shift"]["use"] \

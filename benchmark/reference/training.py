@@ -2,11 +2,14 @@
 the learning-rate ramp, the relative skip guardrail and the EMA.
 
 A frozen copy of the semantics of the port's ``training/trainer.py``
-(``_inputs``, ``_backward``, ``_update``) for one device and one
-micro-batch: the polarity sign, sigma (the rho_train ramp) and the noise
-are drawn, in that order, from a generator seeded as the trainer seeds its
-own; the loss is the per-sample mean squared error of the preconditioned
-net, averaged over the rows; the gradient's global norm is clipped to
+(``_inputs``, ``_backward``, ``_update``, and the dp step's gradient
+average over the ranks) for one micro-batch: each rank's rows draw the
+polarity sign, sigma (the rho_train ramp) and the noise, in that order,
+from a generator seeded as that rank's trainer seeds its own (the
+trainer's seed + 1000003 x the rank); the loss is the per-sample mean
+squared error of the preconditioned net, averaged over the rows of every
+rank (the ranks' average of their rows' averages, which the dp step's
+all-reduce forms); the gradient's global norm is clipped to
 ``max_grad_norm`` (g max / |g| when |g| >= max); Adam's first update has
 learning rate 0 (the ramp reads the count before it grows); a step whose
 norm is not finite or exceeds ``skip_grad_factor`` times the running norm
@@ -21,11 +24,17 @@ import numpy as np
 import torch
 
 
+RANK_SEED_STRIDE = 1000003      # a rank's generator: the trainer's seed + this x the rank
+
+
 class Reference:
-    def __init__(self, net, d: dict, tr: dict, batch: int, seed: int, device):
-        """``net``: the reference U-Net with the benchmark's weights; ``d``:
+    def __init__(self, net, d: dict, tr: dict, batch: int, seed: int, device, ranks: int = 1):
+        """``net``: the reference net with the benchmark's weights; ``d``:
         the training EDM parameters; ``tr``: the trainer's settings (the
-        configuration file's ``training`` group); ``seed``: the trainer's."""
+        configuration file's training role); ``batch``: the global batch,
+        ``batch / ranks`` rows a rank; ``seed``: the trainer's."""
+        if batch % ranks:
+            raise ValueError(f"a global batch of {batch} does not split over {ranks} ranks")
         self.net, self.d, self.tr, self.B = net, d, tr, batch
         self.device = device
         self.params = [p for p in net.parameters()]
@@ -36,18 +45,23 @@ class Reference:
         self.count = 0
         self.gnorm_ema = 0.0
         self.it = 0
-        self.gen = torch.Generator(device=device).manual_seed(int(seed))
+        self.gens = [torch.Generator(device=device).manual_seed(int(seed) + RANK_SEED_STRIDE * r)
+                     for r in range(ranks)]
 
     def _draws(self, L: int):
-        B, d, g = self.B, self.d, self.gen
-        sign = None
-        if self.tr["rev_polarity"]:
-            sign = 1.0 - 2.0 * (torch.rand((B, 1), generator=g, device=self.device) < 0.5).float()
-        a = torch.rand((B,), generator=g, device=self.device)
-        lo, hi = d["sigma_min"] ** (1 / d["rho_train"]), d["sigma_max"] ** (1 / d["rho_train"])
-        sigma = (hi + a * (lo - hi)) ** d["rho_train"]
-        noise = torch.randn((B, L), generator=g, device=self.device) * sigma.reshape(-1, 1)
-        return sign, sigma, noise
+        """Each rank's sign, sigma and noise from its own generator, in rank order."""
+        d, rows = self.d, self.B // len(self.gens)
+        signs, sigmas, noises = [], [], []
+        for g in self.gens:
+            if self.tr["rev_polarity"]:
+                signs.append(1.0 - 2.0 * (torch.rand((rows, 1), generator=g, device=self.device)
+                                          < 0.5).float())
+            a = torch.rand((rows,), generator=g, device=self.device)
+            lo, hi = d["sigma_min"] ** (1 / d["rho_train"]), d["sigma_max"] ** (1 / d["rho_train"])
+            sigma = (hi + a * (lo - hi)) ** d["rho_train"]
+            sigmas.append(sigma)
+            noises.append(torch.randn((rows, L), generator=g, device=self.device) * sigma.reshape(-1, 1))
+        return (torch.cat(signs) if signs else None), torch.cat(sigmas), torch.cat(noises)
 
     def loss_and_grads(self, audio: torch.Tensor):
         """(loss, gradients) of one batch [B, L], rows one at a time."""

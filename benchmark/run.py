@@ -5,7 +5,8 @@
 Run from the repository's root. Prints the result as one JSON line, last on
 standard output, and the numbers ``correct`` was decided on, last on
 standard error. Exits non-zero, with no result, without enough CUDA
-devices. See ``benchmark/README.md``.
+devices. A cell over several cards starts its other ranks as children of
+this process, running this file. See ``benchmark/README.md``.
 """
 import os
 import sys
@@ -35,4 +36,4 @@ sys.path.insert(0, HERE)
 
 if __name__ == "__main__":
     import harness
-    sys.exit(harness.main(sys.argv[1:], T_START))
+    sys.exit(harness.main(sys.argv[1:], T_START, entry=[os.path.abspath(__file__)]))

@@ -27,11 +27,18 @@ def test_every_cell_names_files_that_exist():
     for w in spec["workloads"]:
         cell = harness.load_json("workloads", w["name"])
         assert cell["config"] == w["config"] and cell["traffic"] == w["traffic"]
-        assert cell["chips"] == w["chips"] == 1
+        assert cell["chips"] == w["chips"] and w["chips"] in (1, 4)
         assert configs[w["config"]]["file"] == f"benchmark/configs/{w['config']}.json"
+        cfg = harness.load_json("configs", w["config"])
+        for sub in ("reference", "work"):
+            assert os.path.isfile(os.path.join(harness.HERE, sub, cfg["architecture"] + ".py"))
         mix = harness.load_json("traffic", w["traffic"])
+        assert mix.get("role", "training") in cfg or mix["kind"] != "train"
         kind = harness.kind_module(mix["kind"])
         assert kind.TRACE_UNITS >= 1 and kind.FAMILY in ("sample", "train") and hasattr(kind, "Bench")
+    # cells on four cards: at most a quarter of the cells, rounded down, or one
+    fours = sum(w["chips"] == 4 for w in spec["workloads"])
+    assert fours <= max(1, len(spec["workloads"]) // 4)
     for m in spec["per_layer"]:
         assert m["name"] in readers
         assert readers[m["name"]].UNIT == m["unit"]
@@ -39,22 +46,58 @@ def test_every_cell_names_files_that_exist():
     assert set(readers) == {m["name"] for m in spec["per_layer"]}
 
 
+# the program's trace registry as a traced run gives it to the readers
+# (``aid_tpu_torch.utils.trace.snapshot()``): spans of both families and the
+# phase marks of a body graph and a step graph
+SNAPSHOT = {
+    "spans": {"serve.request": {"count": 1, "total_ms": 13000.0, "recent": [[0.0, 13000.0]]},
+              "serve.device": {"count": 1, "total_ms": 12980.0, "recent": [[5.0, 12985.0]]},
+              "train.step": {"count": 1, "total_ms": 630.0, "recent": [[0.0, 630.0]]},
+              "train.replay": {"count": 1, "total_ms": 1.0, "recent": [[6.0, 7.0]]}},
+    "marks": [{"graph": "heun.body", "replays": 34, "last": 0,
+               "marks": [["heun.denoise", 41.0], ["heun.denoise", 41.0], ["heun.step", 381.0]]},
+              {"graph": "train.step", "replays": 5, "last": 1,
+               "marks": [["train.forward", 150.0], ["train.backward", 400.0],
+                         ["train.update", 70.0]]}]}
+
+
 def test_each_cell_reads_the_per_layer_metrics_listed_for_it():
     """A traced run's readers, given something to read, report in a cell
     exactly the per-layer metrics whose ``workloads`` list it: the kind's
-    declared ``FAMILY`` decides, not its name."""
+    declared ``FAMILY``, or the family its traffic names, decides, not its
+    name; a cell over several cards has its gradient all-reduce's NCCL
+    kernels in rank 0's trace."""
     spec = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
     readers = harness.metric_readers()
     for w in spec["workloads"]:
         cell = harness.load_json("workloads", w["name"])
         cfg = harness.load_json("configs", cell["config"])
-        kind = harness.kind_module(harness.load_json("traffic", cell["traffic"])["kind"])
-        ctx = dict(family=kind.FAMILY, cfg=cfg,
-                   profile={"busy_s": 9.0, "window_s": 10.0, "kernel_s": {"_fused_adaln_fwd": 1.0}},
+        mix = harness.load_json("traffic", cell["traffic"])
+        kind = harness.kind_module(mix["kind"])
+        kernels = {"_fused_adaln_fwd": 1.0}
+        if cell["chips"] > 1:
+            kernels["ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)"] = 0.02
+        ctx = dict(family=mix.get("family", kind.FAMILY), cfg=cfg, chips=cell["chips"], trace=SNAPSHOT,
+                   profile={"busy_s": 9.0, "window_s": 10.0, "kernel_s": kernels},
                    counters={"scores": 69, "steps": 5, "launches": 900, "trajectories": 1, "rows": 2},
                    built={"capture_s": 7.0, "rows": 2, "itemsize": 2, "guided": True})
         read = {name for name, r in readers.items() if r.read(ctx) is not None}
         assert read == {m["name"] for m in spec["per_layer"] if w["name"] in m["workloads"]}, w["name"]
+
+
+def test_each_cell_reports_the_end_to_end_metrics_listed_for_it():
+    """A cell reports ``setup_s`` and at least one more end-to-end metric,
+    each named ``<metric>.<family>`` where its traffic names a family of
+    its own, and only then."""
+    spec = benchmark_json()
+    for w in spec["workloads"]:
+        mix = harness.load_json("traffic", w["traffic"])
+        kind = harness.kind_module(mix["kind"])
+        family = mix.get("family", kind.FAMILY)
+        listed = {m["name"] for m in spec["end_to_end"] if w["name"] in m.get("workloads", [w["name"]])}
+        assert "setup_s" in listed and len(listed) >= 2, w["name"]
+        assert all(n.endswith("." + family) == (family != kind.FAMILY)
+                   for n in listed - {"setup_s"}), w["name"]
 
 
 def test_configuration_files_state_what_the_program_composes():

@@ -19,15 +19,17 @@ def fused_roofline(ctx: dict, pattern: str = "_fused_adaln_fwd") -> Optional[flo
     """% of the HBM bound the fused norm x adaLN x GELU kernel reached in the
     traced units: the bytes its launches need (launches counted by the
     program, bytes from the shapes by ``counts.fused_bytes``) at 3.35 TB/s,
-    over the summed time of the kernels whose name holds ``pattern``."""
+    over the summed time of the kernels whose name holds ``pattern``; None
+    where the architecture has no fused launches."""
     from work import counts
     p, c, b = ctx["profile"], ctx["counters"], ctx["built"]
-    if not p or not c.get("launches"):
+    launches = counts.fused_launches(ctx["cfg"])
+    if not p or not c.get("launches") or not launches:
         return None
     kernel_s = sum(s for name, s in p["kernel_s"].items() if pattern in name)
     if kernel_s <= 0:
         return None
-    forwards = c["launches"] / len(counts.fused_launches(ctx["cfg"]))
+    forwards = c["launches"] / len(launches)
     need = forwards * counts.fused_bytes(ctx["cfg"], b["rows"], b["itemsize"])
     return 100.0 * need / HBM_BYTES_PER_S / kernel_s
 
