@@ -54,50 +54,26 @@ GELU_VARIANTS = ("erf", "tanh", "sigmoid")
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
-# Launches of the Triton kernels, the forward's and the backward's apart. The
-# wrappers add one per launch; a launch that a CUDA graph capture records
-# instead goes to ``_captured`` / ``_bwd_captured``, and each replay of that
-# graph adds what it recorded (``add_replayed_launches``). Nothing else
-# touches them except ``reset_launch_count``. The forward's count stays the
-# forward's alone: the benchmark divides the forward's bytes by it.
-_launches = 0
-_captured = 0
-_bwd_launches = 0
-_bwd_captured = 0
+# Launches of the Triton kernels, the forward's and the backward's apart
+# (``trace.Launches``: a capture's launches counted apart, added by each
+# replay). The forward's count stays the forward's alone: the benchmark
+# divides the forward's bytes by it.
+LAUNCHES = trace.Launches("fused_adaln")
 
 
 def launch_count() -> int:
     """Forward kernel launches."""
-    return _launches
+    return LAUNCHES.count()
 
 
 def bwd_launch_count() -> int:
     """Backward kernel launches."""
-    return _bwd_launches
+    return LAUNCHES.count(bwd=True)
 
 
 def reset_launch_count() -> None:
     """Zero both launch counts."""
-    global _launches, _bwd_launches
-    _launches = _bwd_launches = 0
-
-
-def captured_counts() -> tuple:
-    """(forward, backward) launches recorded by CUDA graph captures so far
-    (not run by them)."""
-    return _captured, _bwd_captured
-
-
-def add_replayed_launches(n: int, bwd: int = 0) -> None:
-    """A replay of a CUDA graph that recorded ``n`` forward and ``bwd``
-    backward launches launched them."""
-    global _launches, _bwd_launches
-    _launches += n
-    _bwd_launches += bwd
-
-
-trace.counter("fused_adaln.launches", launch_count)
-trace.counter("fused_adaln.bwd_launches", bwd_launch_count)
+    LAUNCHES.reset()
 
 
 # ------------------------------------------------------------------ plain
@@ -281,7 +257,6 @@ def _bwd_tile(B: int, R: int, C: int, itemsize: int):
 
 def _fused_cuda(x: torch.Tensor, inv: torch.Tensor, mod: torch.Tensor,
                 gelu: str) -> torch.Tensor:
-    global _launches, _captured
     kernel = _build_kernel()
     B, R, C = x.shape
     y = torch.empty_like(x)
@@ -289,10 +264,7 @@ def _fused_cuda(x: torch.Tensor, inv: torch.Tensor, mod: torch.Tensor,
     grid = ((R + block_r - 1) // block_r, B)
     kernel[grid](x, inv, mod, y, R, C, BLOCK_R=block_r, BLOCK_C=block_c,
                  GELU=GELU_VARIANTS.index(gelu), num_warps=8)
-    if torch.cuda.is_current_stream_capturing():
-        _captured += 1
-    else:
-        _launches += 1
+    LAUNCHES.launched()
     return y
 
 
@@ -300,7 +272,6 @@ def _fused_bwd_cuda(x: torch.Tensor, g: torch.Tensor, inv: torch.Tensor,
                     mod: torch.Tensor, gelu: str, need_dx: bool = True,
                     need_q: bool = True):
     """The backward kernel: as ``fused_bwd_plain``."""
-    global _bwd_launches, _bwd_captured
     kernel = _build_bwd_kernel()
     B, R, C = x.shape
     g = g.contiguous()
@@ -311,10 +282,7 @@ def _fused_bwd_cuda(x: torch.Tensor, g: torch.Tensor, inv: torch.Tensor,
                    R, C, per_prog, BLOCK_R=block_r, BLOCK_C=block_c,
                    GELU=GELU_VARIANTS.index(gelu), NEED_DX=need_dx, NEED_Q=need_q,
                    num_warps=warps)
-    if torch.cuda.is_current_stream_capturing():
-        _bwd_captured += 1
-    else:
-        _bwd_launches += 1
+    LAUNCHES.launched(bwd=True)
     return dx, (part.sum(1) if need_q else None)
 
 

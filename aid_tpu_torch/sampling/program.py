@@ -36,8 +36,8 @@ On the CPU the same object runs the same step functions eagerly over the
 same buffers: its result is ``heun_sample``'s bit for bit.
 
 Kernel launches: the Triton kernels' wrappers count the launches a capture
-records apart from real ones (``fused_adaln.captured_counts``, forward and
-backward); each replay adds what its graph recorded to the launch counts.
+records apart from real ones (``trace.Launches``); each replay adds what its
+graph recorded to the launch counts.
 
 Tracing (``utils.trace``): the spans ``program.build`` (the whole build;
 ``program.warm_up`` and ``program.capture`` inside it, whose seconds
@@ -54,7 +54,6 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from aid_tpu_torch.diffusion import edm
-from aid_tpu_torch.ops import fused_adaln as fa
 from aid_tpu_torch.sampling import degradations as degr
 from aid_tpu_torch.sampling.heun import (Record, SamplerConfig, heun_body, heun_last,
                                          make_score_fn, write_record)
@@ -180,8 +179,7 @@ class HeunProgram:
         # its graph records
         self.scores = {"body": 2 if cfg.order == 2 else 1, "last": 1}
         self.replayed_scores = 0                   # denoiser calls the replays ran
-        self.launches = {"body": 0, "last": 0}     # forward kernel launches per replay
-        self.bwd_launches = {"body": 0, "last": 0}  # backward kernel launches per replay
+        self.recorded = {"body": {}, "last": {}}   # {kernel: (fwd, bwd) launches} per replay
         self.pool_bytes = 0
         self.warm_up_s = 0.0
         self.replays = 0
@@ -240,7 +238,7 @@ class HeunProgram:
         graphs = {}
         for name, fn in steps:
             n0 = self._calls[0]
-            graphs[name], _, (self.launches[name], self.bwd_launches[name]), peak = capture(
+            graphs[name], _, self.recorded[name], peak = capture(
                 fn, stream, pool, f"the {self.task} program's '{name}' step at {self.shape}",
                 marks=self.marks[name])
             self.scores[name] = self._calls[0] - n0
@@ -256,7 +254,7 @@ class HeunProgram:
         self.marks[name].replayed()
         self.replays += 1
         self.replayed_scores += self.scores[name]
-        fa.add_replayed_launches(self.launches[name], self.bwd_launches[name])
+        trace.replayed_launches(self.recorded[name])
 
     # ------------------------------------------------------------------- run
 
@@ -311,10 +309,15 @@ class HeunProgram:
                                f"eagerly on {self.device}")
         return self.static_bytes() + self.pool_bytes
 
-    def launches_per_run(self, bwd: bool = False) -> int:
-        """Forward (``bwd``: backward) kernel launches one ``run`` makes:
-        what each capture recorded, times its replays (0 on the CPU)."""
-        n = self.bwd_launches if bwd else self.launches
+    def replay_launches(self, bwd: bool = False, kernel: str = "fused_adaln") -> Dict[str, int]:
+        """{step: forward (``bwd``: backward) launches of ``kernel`` that a
+        replay of the step's graph makes} (0 on the CPU)."""
+        return {k: r.get(kernel, (0, 0))[int(bwd)] for k, r in self.recorded.items()}
+
+    def launches_per_run(self, bwd: bool = False, kernel: str = "fused_adaln") -> int:
+        """Forward (``bwd``: backward) launches of ``kernel`` one ``run``
+        makes: what each capture recorded, times its replays (0 on the CPU)."""
+        n = self.replay_launches(bwd, kernel)
         return n["body"] * (self.cfg.T - 1) + n["last"]
 
     def scores_per_run(self) -> int:
@@ -330,8 +333,8 @@ class HeunProgram:
                 "memory_bytes": self.memory_bytes() if self.graphs is not None else None,
                 "static_bytes": self.static_bytes(), "pool_bytes": self.pool_bytes,
                 "scores": dict(self.scores), "scores_per_run": self.scores_per_run(),
-                "launches_per_replay": dict(self.launches),
+                "launches_per_replay": self.replay_launches(),
                 "launches_per_run": self.launches_per_run(),
-                "bwd_launches_per_replay": dict(self.bwd_launches),
+                "bwd_launches_per_replay": self.replay_launches(bwd=True),
                 "bwd_launches_per_run": self.launches_per_run(bwd=True), "replays": self.replays,
                 "replayed_scores": self.replayed_scores}

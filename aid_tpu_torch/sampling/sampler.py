@@ -36,6 +36,7 @@ import torch
 
 from aid_tpu_torch.diffusion import edm
 from aid_tpu_torch.ops import fused_adaln as fa
+from aid_tpu_torch.ops import gated_tanh as gt
 from aid_tpu_torch.parallel import mesh as pmesh
 from aid_tpu_torch.sampling import degradations as degr
 from aid_tpu_torch.sampling import program
@@ -53,7 +54,7 @@ def denoise_at(p: edm.EDMParams, model, x: torch.Tensor, t: torch.Tensor) -> tor
 
 class Sampler:
     def __init__(self, model, diff_params, args, rid: bool = False):
-        """model: the UnetCQT module (on its device); diff_params: edm.EDM or
+        """model: the denoiser module (on its device); diff_params: edm.EDM or
         EDMParams; args: the config tree; rid: record every trajectory."""
         self.model = model
         self.args = args
@@ -144,15 +145,16 @@ class Sampler:
         self._pool = None
 
     def _cached_program(self, task_key, build) -> HeunProgram:
-        """One program per (task key, fused function, weights): the fused
-        function is looked up at call time (a patched plain version builds
-        its own program), and programs of weights that were replaced or
-        loaded in place are dropped, never replayed."""
+        """One program per (task key, fused functions, weights): the fused
+        norm x adaLN x GELU and the gate are looked up at call time (a
+        patched plain version builds its own program), and programs of
+        weights that were replaced or loaded in place are dropped, never
+        replayed."""
         weights = self._weights_key()
         if weights != self._weights:
             self.release_programs()
             self._weights = weights
-        key = (task_key, fa.norm_adaln_gelu)
+        key = (task_key, fa.norm_adaln_gelu, gt.gated_tanh)
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = build()

@@ -146,7 +146,9 @@ class InpaintingService:
             self.args.network["context_parallel"] = True
             if "attention_dict" in self.args.network:
                 self.args.network["attention_dict"]["context_parallel"] = True
-            for m in self.network.modules():      # the U-Net and its attention layers
+            # the U-Net and its attention layers; a network that does not
+            # split its time axis raises here
+            for m in self.network.modules():
                 if hasattr(m, "context_parallel"):
                     m.context_parallel = True
             ring.set_cp_mesh(mesh)
@@ -154,6 +156,8 @@ class InpaintingService:
             if str(self.args.network.get("quant", "none")) != "none":
                 raise ValueError("tensor-parallel serving does not compose with int8 "
                                  "quantization (network.quant must be 'none')")
+            if "shard0" not in tp.param_placements(self.network, n_tp).values():
+                raise ValueError(f"the network has no layer that splits over {n_tp} tp ranks")
             tp.place_params(self.network, mesh)
         n_dp = pmesh.dim_size(mesh, pmesh.DATA_AXIS)
         self.max_batch = -(-self.max_batch // n_dp) * n_dp

@@ -144,7 +144,7 @@ def body_step(case) -> dict:
             prog.marks["body"].replayed()
 
     out = {"capture_s": prog.capture_s, "warm_up_s": prog.warm_up_s,
-           "memory_bytes": prog.memory_bytes(), "launches_per_replay": prog.launches["body"]}
+           "memory_bytes": prog.memory_bytes(), "launches_per_replay": prog.replay_launches()["body"]}
     for name, fn in (("eager", eager), ("graph", replay)):
         wall = wall_s(fn)
         t = traced(fn)

@@ -32,8 +32,7 @@ raises with the operation that broke it.
 On the CPU ``run`` calls the same functions eagerly over the same buffers.
 
 Kernel launches: the Triton kernels' wrappers count those a capture
-records apart (``fused_adaln.captured_counts``, forward and backward); each
-replay adds them.
+records apart (``trace.Launches``); each replay adds them.
 
 Tracing (``utils.trace``): the span ``program.build`` around the build
 (``program.warm_up`` and ``program.capture`` inside it; ``report()`` gives
@@ -77,8 +76,7 @@ class StepProgram:
         self.graphs = []            # the step's graph, or the head's and the tail's
         self.carry = None           # the head graph's output, which the hook reduces
         self.out = None
-        self.launches = 0           # forward kernel launches per replay
-        self.bwd_launches = 0       # backward kernel launches per replay
+        self.recorded = {}          # {kernel: (fwd, bwd) launches} per replay
         self.warmup_launches = 0
         self.pool_bytes = 0
         self.warm_up_s = 0.0
@@ -113,7 +111,7 @@ class StepProgram:
             self.warm_up_s = warm_up([self._call], stream)
             self.warmup_launches = fa.launch_count() - n0
             if self.hook is None:
-                g, self.out, (self.launches, self.bwd_launches), self.pool_bytes = capture(
+                g, self.out, self.recorded, self.pool_bytes = capture(
                     self._call, stream, what=what, marks=self.marks)
                 self.graphs = [g]
             else:
@@ -128,7 +126,8 @@ class StepProgram:
                                                    pool, what=f"the tail of {what}",
                                                    marks=self.marks)
                 self.graphs, self.carry = [ga, gb], carry
-                self.launches, self.bwd_launches = la[0] + lb[0], la[1] + lb[1]
+                self.recorded = {k: tuple(a + b for a, b in zip(la.get(k, (0, 0)), n))
+                                 for k, n in lb.items()}
                 self.pool_bytes = max(peak_a, held + peak_b)
         finally:
             if restore is not None:
@@ -160,10 +159,15 @@ class StepProgram:
                 self.graphs[1].replay()
         self.marks.replayed()
         self.replays += 1
-        fa.add_replayed_launches(self.launches, self.bwd_launches)
+        trace.replayed_launches(self.recorded)
         return fresh(self.out)
 
     # --------------------------------------------------------------- reports
+
+    def replay_launches(self, bwd: bool = False, kernel: str = "fused_adaln") -> int:
+        """Forward (``bwd``: backward) launches of ``kernel`` a replay makes
+        (0 on the CPU)."""
+        return self.recorded.get(kernel, (0, 0))[int(bwd)]
 
     def shapes(self) -> Dict[str, list]:
         return {k: list(v.shape) for k, v in self.bufs.items()}
@@ -190,6 +194,7 @@ class StepProgram:
                 "graph_capture_s": self.capture_s - self.warm_up_s,
                 "memory_bytes": self.memory_bytes() if self.graphs else None,
                 "static_bytes": self.static_bytes(), "pool_bytes": self.pool_bytes,
-                "launches_per_replay": self.launches, "bwd_launches_per_replay": self.bwd_launches,
+                "launches_per_replay": self.replay_launches(),
+                "bwd_launches_per_replay": self.replay_launches(bwd=True),
                 "warmup_launches": self.warmup_launches,
                 "replays": self.replays}

@@ -1,4 +1,4 @@
-"""EDM training of the U-Net on one CUDA device or a data-parallel group.
+"""EDM training of the denoiser on one CUDA device or a data-parallel group.
 
 Port of ``aid_tpu/training/trainer.py``. One iteration: the host batch goes
 to the device, rows at another rate are resampled there and cropped to the
@@ -29,7 +29,7 @@ the metrics). The host does what varies from step to step first, in the
 eager order: each micro-batch goes to the device, is resampled, and draws
 its sign, sigma and noise from ``self.gen``; the EMA's rate comes from the
 iteration count. The step runs as a ``training.program.StepProgram``,
-one per (input shapes and dtypes, fused function, TF32 and remat settings)
+one per (input shapes and dtypes, fused functions, TF32 and remat settings)
 over the current state tensors, the counterpart of the JAX step's
 ``jax.jit`` with donation: on CUDA CUDA graphs replayed every step, on the
 CPU the same functions eagerly over the same buffers (the eager step bit
@@ -78,6 +78,7 @@ import torch.distributed as dist
 
 from aid_tpu_torch.diffusion import edm
 from aid_tpu_torch.ops import fused_adaln as fa
+from aid_tpu_torch.ops import gated_tanh as gt
 from aid_tpu_torch.parallel import mesh as pmesh
 from aid_tpu_torch.training import stats as tstats
 from aid_tpu_torch.training import utils as tutils
@@ -164,6 +165,9 @@ class Trainer:
         if bool(aw.get("use_aweighting", False)):
             err_filter = tutils.a_weighting_filter(self.target_fs, int(aw.get("ntaps", 101)))
         if bool(exp.get("use_cqt_DC_correction", False)):
+            if getattr(network, "cqt", None) is None:
+                raise ValueError("exp.use_cqt_DC_correction filters the loss through the "
+                                 "network's CQT; this network has none")
             hpf = network.cqt.apply_hpf_DC
             prev = err_filter
             err_filter = (lambda e: hpf(prev(e))) if prev else hpf
@@ -217,11 +221,13 @@ class Trainer:
         self.sharded = torch.tensor([d is not None for d in self.shard_dims], device=self.device)
 
     def _shard(self, min_size: int) -> None:
-        """FSDP2 over the dp mesh: one group per residual block, one for the
-        rest; the parameters under ``min_size`` elements stay whole."""
+        """FSDP2 over the dp mesh: one group per residual block (the U-Net's
+        and DiffWave's), one for the rest; the parameters under ``min_size``
+        elements stay whole."""
         from torch.distributed.fsdp import fully_shard
         from torch.distributed.tensor import Shard
 
+        from aid_tpu_torch.models.diffwave import ResidualBlock
         from aid_tpu_torch.models.unet_cqt import AdaLNResBlock
         dims = {p: pmesh.fsdp_shard_dim(tuple(p.shape), self.n_dp, min_size)
                 for p in self.net.parameters()}
@@ -230,7 +236,7 @@ class Trainer:
         kw = dict(mesh=self.mesh, shard_placement_fn=lambda p: Shard(dims[p]),
                   ignored_params=whole)
         for m in self.net.modules():
-            if isinstance(m, AdaLNResBlock):
+            if isinstance(m, (AdaLNResBlock, ResidualBlock)):
                 fully_shard(m, **kw)
         fully_shard(self.net, **kw)
         self._whole = [p for p in self.net.parameters() if p in whole and p.requires_grad]
@@ -638,7 +644,7 @@ class Trainer:
             self.release_step_programs()
         buffers = specs({"x": x, **draws})
         key = (tuple(sorted((k, s, str(d)) for k, (s, d) in buffers.items())),
-               fa.norm_adaln_gelu, capture_flags(self.net))
+               fa.norm_adaln_gelu, gt.gated_tanh, capture_flags(self.net))
         prog = self._step_programs.get(key)
         if prog is None:
             # on the card the build's warm-up trains one step: undone after

@@ -26,7 +26,6 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from aid_tpu_torch.ops import fused_adaln as fa
 from aid_tpu_torch.utils import trace
 
 Spec = Tuple[Tuple[int, ...], torch.dtype]      # a buffer's shape and dtype
@@ -76,15 +75,16 @@ def capture(fn: Callable, stream: "torch.cuda.Stream", pool=None, what: str = "a
     """Capture ``fn()`` as one CUDA graph on ``stream`` into ``pool`` (a
     private pool when None), with the collector off, inside the span
     ``program.capture``; the phase marks ``fn`` makes are ``marks``'s. Returns
-    (the graph, what ``fn`` returned, the (forward, backward) fused-kernel
-    launches the capture recorded, the peak bytes it allocated in the pool;
+    (the graph, what ``fn`` returned, the {kernel: (forward, backward)}
+    launches the capture recorded, which each replay adds with
+    ``trace.replayed_launches``, the peak bytes it allocated in the pool;
     the device's peak-memory statistics are reset to measure it). A capture
     that fails raises, naming ``what``."""
     dev = stream.device
     g = torch.cuda.CUDAGraph()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    n0 = fa.captured_counts()
+    n0 = trace.captured_launches()
     collecting = gc.isenabled()
     gc.disable()
     try:
@@ -97,7 +97,7 @@ def capture(fn: Callable, stream: "torch.cuda.Stream", pool=None, what: str = "a
     finally:
         if collecting:
             gc.enable()
-    launches = tuple(b - a for a, b in zip(n0, fa.captured_counts()))
+    launches = trace.captured_launches(since=n0)
     return g, out, launches, torch.cuda.max_memory_allocated(dev) - base
 
 

@@ -23,7 +23,13 @@ are those of the group's last replay, and are read only by ``snapshot()``,
 which waits for them.
 
 Counters. ``counter(name, read)`` registers a program counter (a
-function returning a number), such as the fused kernels' launch counts.
+function returning a number). ``Launches(kernel)`` is the launch count of
+one hand-written kernel, forward and backward apart, registered as the
+counters ``<kernel>.launches`` and ``<kernel>.bwd_launches``. A launch
+that a CUDA graph capture records is not run: it is counted apart,
+``utils.graphs.capture`` returns what every kernel's captures recorded
+(``captured_launches``), and each replay of the graph adds it
+(``replayed_launches``).
 
 ``snapshot()`` returns all three as plain numbers, for the benchmark's
 readers and for an operator; ``idle_gaps(prof)`` reduces a finished
@@ -39,7 +45,7 @@ import itertools
 import threading
 import time
 import weakref
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -51,6 +57,7 @@ _SEQ = itertools.count()
 _GROUPS: "weakref.WeakSet[Marks]" = weakref.WeakSet()
 _THREAD = threading.local()     # .capturing: the group whose capture runs in this thread
 _COUNTERS: Dict[str, Callable[[], float]] = {}
+_LAUNCHES: Dict[str, "Launches"] = {}
 _profiler_on = torch._C._autograd._profiler_enabled
 
 
@@ -159,6 +166,50 @@ def mark(name: str):
 def counter(name: str, read: Callable[[], float]) -> None:
     """Report ``read()`` under ``name`` in every ``snapshot()``."""
     _COUNTERS[name] = read
+
+
+class Launches:
+    """The launches of one hand-written kernel (see the module's docstring):
+    ``run`` the (forward, backward) launches run, ``captured`` those that
+    captures recorded."""
+
+    def __init__(self, kernel: str):
+        self.run = [0, 0]
+        self.captured = [0, 0]
+        _LAUNCHES[kernel] = self
+        counter(f"{kernel}.launches", lambda: self.run[0])
+        counter(f"{kernel}.bwd_launches", lambda: self.run[1])
+
+    def launched(self, bwd: bool = False) -> None:
+        """One launch of the forward (``bwd``: the backward) kernel."""
+        side = self.captured if torch.cuda.is_current_stream_capturing() else self.run
+        side[int(bwd)] += 1
+
+    def count(self, bwd: bool = False) -> int:
+        """Forward (``bwd``: backward) launches run, replays' included."""
+        return self.run[int(bwd)]
+
+    def reset(self) -> None:
+        """Zero both run counts."""
+        self.run = [0, 0]
+
+
+def captured_launches(since: Optional[Dict[str, Tuple[int, int]]] = None
+                      ) -> Dict[str, Tuple[int, int]]:
+    """{kernel: (forward, backward) launches that captures recorded}, so far
+    or since the reading ``since``."""
+    since = since or {}
+    return {k: tuple(n - m for n, m in zip(v.captured, since.get(k, (0, 0))))
+            for k, v in _LAUNCHES.items()}
+
+
+def replayed_launches(recorded: Dict[str, Tuple[int, int]]) -> None:
+    """A replay of a graph whose capture recorded ``recorded`` (from
+    ``captured_launches``) launched them."""
+    for k, (fwd, bwd) in recorded.items():
+        run = _LAUNCHES[k].run
+        run[0] += fwd
+        run[1] += bwd
 
 
 def snapshot() -> dict:

@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --diffwave      # phases 1 and 12 alone
 
 Phases (any failure exits non-zero before the last line is printed):
   1. device: a CUDA device is required; prints the card's name and power
@@ -218,6 +219,29 @@ Phases (any failure exits non-zero before the last line is printed):
           remat, TF32 convs as the training default): a finite ms a step;
        d. host only, beside 11a and 11c: ``scripts/bench_loader_torch.py
           --files 4 --secs 30 --batches 10``: its three ``num_workers=`` rows;
+  12. DiffWave (network=diffwave_16k, exp=librispeech16k_8s), after 11:
+       a. the gate kernels (``ops/gated_tanh.py``) against their plain
+          version at the served shape [2, 512, 131072], bf16 and f32,
+          forward and backward;
+       b. their device time per 2-row guided score (36 launches each way)
+          against the plain version's and the bytes bound, inputs not in L2;
+       c. the dilated conv C -> 2C at every dilation, cuDNN's dilated
+          conv1d against the folded form: at [2, 256, 131072] bf16, forward
+          and with the input gradient; at [4, 256, 131072] f32 (TF32),
+          forward and with both gradients; the 1x1 conv as conv1d and as
+          matmul;
+       d. one guided score at [2, 131072]: the bf16 net against the f32
+          reference (``tests/diffwave_reference.py``, TF32 off) on the same
+          weights, device time and peak memory of each, 36 gate launches
+          each way;
+       e. a captured f32 training step at batch 4 with remat (TF32 convs):
+          build, step time, peak memory (no benchmark cell trains DiffWave),
+          in the net's conv forms and again with every f32 conv from d = 16
+          folded;
+       f. ``InpaintingService.from_config`` serves a 20 s request with two
+          gaps through its programs under the profiler: observed samples
+          exact, ``_gated_tanh_fwd`` and ``_gated_tanh_bwd`` in the trace,
+          their counters non-zero;
   9. each phase's seconds, the ``kernels`` JSON line (phase 10's launches
      and errors included), then the device JSON line.
 
@@ -1318,7 +1342,7 @@ def phase_train_program(torch, fa, np, tr, batches, draws, per_fwd, card):
            "step_programs_built": tr.step_programs_built, "card": card}
     log(json.dumps(rec))
     ok = (unchanged and len(prog.graphs) == 1 and within
-          and rec["launches"]["program"] == [prog.launches] == [2 * per_fwd]
+          and rec["launches"]["program"] == [prog.replay_launches()] == [2 * per_fwd]
           and rec["launches"]["eager"] == [2 * per_fwd] * 2)
     if not ok:
         fail(f"the captured training step: {rec}")
@@ -3453,6 +3477,322 @@ def phase_bench_loader(work, card):
     return loader
 
 
+# ------------------------------------------------------------------ DiffWave
+
+DW_NET = ["network=diffwave_16k", "exp=librispeech16k_8s"]
+DW_SHAPE = (2, 256, 131072)    # the served rows x DiffWave's C x 8.19 s at 16 kHz
+DW_LAYERS = 36
+
+
+def dw_weights(torch, net, seed):
+    """Every parameter of ``net`` uniform in +-1/sqrt(fan in), biases too
+    (lmnt's init zeroes the output projection, which would cut the
+    guidance's gradient off the net)."""
+    gen = torch.Generator().manual_seed(seed)
+    return {n: (torch.rand(p.shape, generator=gen) * 2 - 1)
+            / math.sqrt(p[0].numel() if p.dim() >= 2 else p.numel())
+            for n, p in sorted(net.state_dict().items())}
+
+
+def dw_gate(torch, gt, card):
+    """(a) the gate kernels against the plain version at the served shape, in
+    bf16 and f32, forward and backward; (b) their device time against the
+    plain version's and the bytes bound, per guided score (36 forward and 36
+    backward launches), inputs not in L2."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    B, C, L = DW_SHAPE
+    out, bad = {}, []
+    for dt in (torch.float32, torch.bfloat16):
+        z = (3.0 * torch.randn(B, 2 * C, L, generator=gen, device="cuda")).to(dt)
+        dg = torch.randn(B, C, L, generator=gen, device="cuda").to(dt)
+        g, dz = gt._gated_cuda(z), gt._gated_bwd_cuda(z, dg)
+        gp, dzp = gt.gated_tanh_plain(z), gt.gated_tanh_bwd_plain(z, dg)
+        err = (g.float() - gp.float()).abs().max().item()
+        derr = ((dz.float() - dzp.float()).abs().max() / dzp.float().abs().max()).item()
+        tol = 1e-6 if dt == torch.float32 else 2.0 ** -8
+        log(json.dumps({"check": "gated_tanh", "dtype": str(dt)[6:], "shape": [B, 2 * C, L],
+                        "fwd_max_abs_err": err, "bwd_rel_err": derr, "tol": tol}))
+        if not (err <= tol and derr <= tol):
+            bad.append(f"gated_tanh {dt}: {err}, {derr}")
+        out[str(dt)[6:]] = {"fwd_max_abs_err": err, "bwd_rel_err": derr}
+        del z, dg, g, dz, gp, dzp
+    dt = torch.bfloat16
+    sets = [((3.0 * torch.randn(B, 2 * C, L, generator=gen, device="cuda")).to(dt),
+             torch.randn(B, C, L, generator=gen, device="cuda").to(dt)) for _ in range(2)]
+    with torch.no_grad():
+        fwd = graph_ms(torch, lambda z, g: gt._gated_cuda(z), sets, reps=8)
+        bwd = graph_ms(torch, gt._gated_bwd_cuda, sets, reps=8)
+        fwd_p = graph_ms(torch, lambda z, g: gt.gated_tanh_plain(z), sets, reps=4)
+        bwd_p = graph_ms(torch, gt.gated_tanh_bwd_plain, sets, reps=4)
+    del sets
+    torch.cuda.empty_cache()
+    n = B * C * L * 2
+    t = {"fwd_ms": DW_LAYERS * fwd, "fwd_plain_ms": DW_LAYERS * fwd_p,
+         "fwd_bound_ms": DW_LAYERS * 3 * n / HBM_BYTES_PER_S * 1e3,
+         "bwd_ms": DW_LAYERS * bwd, "bwd_plain_ms": DW_LAYERS * bwd_p,
+         "bwd_bound_ms": DW_LAYERS * 5 * n / HBM_BYTES_PER_S * 1e3}
+    t["fwd_roofline_pct"] = 100 * t["fwd_bound_ms"] / t["fwd_ms"]
+    t["bwd_roofline_pct"] = 100 * t["bwd_bound_ms"] / t["bwd_ms"]
+    log(json.dumps({"timing": "gated_tanh per 2-row guided score (36 launches each way), bf16",
+                    **t, "card": card}))
+    return {**out, **t}, bad
+
+
+def dw_conv_rows(torch, dw, card, B, dt, weight_grad):
+    """The dilated k=3 conv C -> 2C over [B, C, 131072] in ``dt`` at every
+    dilation of the net: cuDNN's dilated conv1d against the folded form,
+    forward and forward plus the input gradient (with ``weight_grad`` the
+    weight's too), each a CUDA graph over inputs not in L2."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    _, C, L = DW_SHAPE
+    xs = [(torch.randn(B, C, L, generator=gen, device="cuda").to(dt),) for _ in range(2)]
+    w = (torch.randn(2 * C, C, 3, generator=gen, device="cuda") / math.sqrt(3 * C)).to(dt)
+    b = torch.zeros(2 * C, device="cuda", dtype=dt)
+    gy = torch.randn(B, 2 * C, L, generator=gen, device="cuda").to(dt)
+    what = f"dilated conv C->2C, [{B}, {C}, {L}] {str(dt)[6:]}" + \
+        (" (TF32), backward with the weight gradient" if weight_grad else "")
+    rows = []
+    for d in [2 ** i for i in range(12)]:
+        row = {"d": d}
+        for form in dw.CONV_FORMS:
+            def fwd(x, form=form):
+                return dw.dilated_conv1d(x, w, b, d, form)
+
+            def fwd_bwd(x, form=form):
+                xg = x.detach().requires_grad_(True)
+                wg = w.detach().requires_grad_(weight_grad)
+                wrt = (xg, wg) if weight_grad else (xg,)
+                return torch.autograd.grad(dw.dilated_conv1d(xg, wg, b, d, form), wrt, gy)
+
+            with torch.no_grad():
+                row[f"{form}_ms"] = graph_ms(torch, fwd, xs, reps=6)
+            row[f"{form}_fwd_bwd_ms"] = graph_ms(torch, fwd_bwd, xs, reps=6)
+            torch.cuda.empty_cache()
+        rows.append(row)
+        log(json.dumps({"timing": what, **row, "card": card}))
+    del xs, gy
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dw_convs(torch, F, dw, card):
+    """(c) The dilated conv's two forms at every dilation: at the served
+    shape in bf16 with the input gradient (the guided score), and at the
+    training batch 4 in f32 with TF32 convs and both gradients (the
+    training step); the 1x1 conv C -> 2C as a conv1d against a matmul."""
+    rows = dw_conv_rows(torch, dw, card, DW_SHAPE[0], torch.bfloat16, weight_grad=False)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        rows_f32 = dw_conv_rows(torch, dw, card, 4, torch.float32, weight_grad=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B, C, L = DW_SHAPE
+    dt = torch.bfloat16
+    xs = [(torch.randn(B, C, L, generator=gen, device="cuda").to(dt),) for _ in range(2)]
+    b = torch.zeros(2 * C, device="cuda", dtype=dt)
+    w1 = (torch.randn(2 * C, C, 1, generator=gen, device="cuda") / math.sqrt(C)).to(dt)
+    with torch.no_grad():
+        conv1 = graph_ms(torch, lambda x: F.conv1d(x, w1, b), xs, reps=6)
+        mm = graph_ms(torch, lambda x: torch.matmul(w1[:, :, 0], x) + b[:, None], xs, reps=6)
+    log(json.dumps({"timing": "1x1 conv C->2C, [2, 256, 131072] bf16", "conv1d_ms": conv1,
+                    "matmul_ms": mm, "card": card}))
+    del xs
+    torch.cuda.empty_cache()
+    return {"dilated": rows, "dilated_f32": rows_f32, "conv1x1_ms": conv1, "matmul_ms": mm}
+
+
+def dw_score(torch, np, dw, ref, card):
+    """The guided score at the served shape: the port's bf16 net (the gate
+    kernels, the dilated-conv form the net takes) against the float32
+    reference on the same weights (TF32 off): the denoised estimate and the
+    guidance's input gradient; device time and peak memory of the score."""
+    from aid_tpu_torch.diffusion import edm
+    from aid_tpu_torch.ops import gated_tanh as gt
+    from aid_tpu_torch.utils.config import compose
+    args = compose(overrides=DW_NET)
+    state = dw_weights(torch, dw.build_diffwave(args), 13)
+    net = dw.build_diffwave(args)
+    net.load_state_dict(state)
+    net = net.store_weights_in_compute_dtype().requires_grad_(False).cuda().eval()
+    reference = ref.DiffWave()
+    reference.load_state_dict(state)
+    reference = reference.requires_grad_(False).cuda().eval()
+    p = edm.EDMParams.from_args(args.tester.diff_params)
+    B, _, L = DW_SHAPE
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy((0.3 * rng.standard_normal((B, L))).astype(np.float32)).cuda()
+    y = torch.from_numpy((0.05 * rng.standard_normal((B, L))).astype(np.float32)).cuda()
+    mask = torch.ones(B, L, device="cuda")
+    mask[:, L // 2 - 8000:L // 2 + 8000] = 0.0
+    sigma = torch.tensor([[0.5], [0.2]], device="cuda")
+
+    def score(model):
+        xg = x.clone().requires_grad_(True)
+        d = edm.denoiser(p, model, xg, sigma)
+        r = (y - mask * d).reshape(B, -1)
+        (g,) = torch.autograd.grad(r.square().sum(-1).sqrt().sum(), xg)
+        return d.detach(), g
+
+    out = {}
+    for name, model in (("port", net), ("reference", reference)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        f0, b0 = gt.LAUNCHES.count(), gt.LAUNCHES.count(bwd=True)
+        d, g = score(model)
+        launches = (gt.LAUNCHES.count() - f0, gt.LAUNCHES.count(bwd=True) - b0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(3):
+            score(model)
+        e.record()
+        torch.cuda.synchronize()
+        out[name] = {"d": d, "g": g, "ms": a.elapsed_time(e) / 3, "peak_gb": peak / 2 ** 30,
+                     "launches": launches}
+    P, R = out["port"], out["reference"]
+    errs = {"d_max_rel_err": ((P["d"] - R["d"]).abs().max() / R["d"].abs().max()).item(),
+            "d_gap_rel_l2": ((P["d"] - R["d"]) * (1 - mask)).norm().item()
+            / (R["d"] * (1 - mask)).norm().item(),
+            "grad_rel_l2": ((P["g"] - R["g"]).norm() / R["g"].norm()).item()}
+    res = {**errs, "port_score_ms": P["ms"], "reference_score_ms": R["ms"],
+           "port_peak_gb": P["peak_gb"], "reference_peak_gb": R["peak_gb"],
+           "gate_launches": P["launches"], "card": card}
+    log(json.dumps({"check": "diffwave guided score, [2, 131072], bf16 port vs f32 reference",
+                    **res}))
+    bad = []
+    if not errs["d_max_rel_err"] <= BF16_TOL or not errs["grad_rel_l2"] <= 0.05:
+        bad.append(f"diffwave score off the f32 reference: {errs}")
+    if P["launches"] != (DW_LAYERS, DW_LAYERS):
+        bad.append(f"gate launches a guided score {P['launches']}, expected 36 each way")
+    del net, reference, out, P, R
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, bad
+
+
+def dw_train(torch, np, work, card, dw, fold_from):
+    """One captured f32 training step at the published batch 4 with remat
+    (TF32 convs, the training default), its dilated convs in the forms
+    ``fold_from`` gives (as ``models.diffwave.FOLD_FROM``): build, the step
+    replayed, its wall, peak memory, the program's memory and gate launches
+    a step."""
+    from aid_tpu_torch import setup as tsetup
+    from aid_tpu_torch import train as ttrain
+    from aid_tpu_torch.ops import gated_tanh as gt
+    args = ttrain.compose_args(DW_NET + [f"model_dir={work}/diffwave_train",
+                                         "logging.print_model_summary=False"])
+    tf32, kept = torch.backends.cudnn.allow_tf32, dw.FOLD_FROM
+    torch.backends.cudnn.allow_tf32 = True
+    dw.FOLD_FROM = fold_from
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        net = tsetup.setup_network(args, device="cuda", seed=15, trainable=True)
+        tr = tsetup.setup_trainer(args, network=net,
+                                  diff_params=tsetup.setup_diff_parameters(args))
+        tr.init_state()
+        rng = np.random.default_rng(16)
+        B, L = int(args.exp.batch), int(args.exp.audio_len)
+        batches = [(0.05 * rng.standard_normal((B, L))).astype(np.float32) for _ in range(4)]
+        fs = np.full(B, int(args.exp.sample_rate))
+        t0 = time.time()
+        prog = tr.compile_step(batches[0], fs)
+        build_s = time.time() - t0
+        losses, walls = [], []
+        g0 = gt.LAUNCHES.count()
+        for xb in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = tr.train_step(xb, fs)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t)
+        res = {"batch": B, "remat": bool(net.remat), "fold_from": str(fold_from),
+               "build_s": build_s,
+               "step_ms": 1e3 * float(np.median(walls[1:])), "losses": losses,
+               "gate_launches_per_step": (gt.LAUNCHES.count() - g0) / len(batches),
+               "program_memory_gb": prog.memory_bytes() / 2 ** 30,
+               "peak_reserved_gb": torch.cuda.max_memory_reserved() / 2 ** 30, "card": card}
+    finally:
+        torch.backends.cudnn.allow_tf32, dw.FOLD_FROM = tf32, kept
+    log(json.dumps({"check": "diffwave training step, f32, batch 4, remat, captured", **res}))
+    bad = [] if all(math.isfinite(v) for v in losses) else [f"diffwave losses {losses}"]
+    del tr, net, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, bad
+
+
+def dw_serve(torch, np, card):
+    """``InpaintingService.from_config(DW_NET)`` (bf16, T=35, guided, seeded
+    lmnt-init weights) answers a 20 s request with two gaps through its
+    captured programs under the profiler: observed samples exact, the gate
+    kernels in the trace and their counters non-zero, the real-time factor."""
+    from aid_tpu_torch.serving import InpaintingService
+    from aid_tpu_torch.utils import trace
+    svc = InpaintingService.from_config(DW_NET, seed=17)
+    svc.precompile()
+    fs, n = 16000, 20 * 16000
+    rng = np.random.default_rng(18)
+    audio = (0.05 * rng.standard_normal(n)).astype(np.float32)
+    mask = np.ones(n, np.float32)
+    mask[5 * fs:5 * fs + 8000] = mask[15 * fs:15 * fs + 4000] = 0.0
+    c0 = trace.snapshot()["counters"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = svc.inpaint(audio, mask, fs, seed=19)
+        wall = time.perf_counter() - t
+    c1 = trace.snapshot()["counters"]
+    names = {e.key for e in prof.key_averages()}
+    res = {"wall_s": wall, "rtf": 2 * svc.args.exp.audio_len / fs / wall,
+           "observed_changed": int(np.count_nonzero((mask > 0) & (out != audio))),
+           "gate_launches": c1["gated_tanh.launches"] - c0["gated_tanh.launches"],
+           "gate_bwd_launches": c1["gated_tanh.bwd_launches"] - c0["gated_tanh.bwd_launches"],
+           "kernels_in_trace": sorted(k for k in names if "gated_tanh" in k),
+           "programs": [p.report() for p in svc.sampler._programs.values()], "card": card}
+    log(json.dumps({"check": "diffwave InpaintingService request", **res}))
+    bad = []
+    if res["observed_changed"] or not np.isfinite(out).all():
+        bad.append("diffwave service changed observed samples or returned non-finite ones")
+    if not (res["gate_launches"] and res["gate_bwd_launches"]) or \
+            not {"_gated_tanh_fwd", "_gated_tanh_bwd"} <= set(res["kernels_in_trace"]):
+        bad.append(f"diffwave service did not run the gate kernels: {res['kernels_in_trace']}")
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, bad
+
+
+def phase_diffwave(torch, np, work, card):
+    """Phase 12: DiffWave (network=diffwave_16k, exp=librispeech16k_8s) on
+    the card: (a-b) the gate kernels, (c) the dilated-conv forms, (d) the
+    guided score against the f32 reference, (e) a captured training step in
+    the net's conv forms and with f32 convs folded from d = 16, (f) a
+    served request. Fails after every part has logged."""
+    import torch.nn.functional as F
+
+    from aid_tpu_torch.models import diffwave as dw
+    from aid_tpu_torch.ops import gated_tanh as gt
+    from tests import diffwave_reference as ref
+    log("== phase 12: DiffWave, unconditional (network=diffwave_16k, exp=librispeech16k_8s)")
+    out, bad = {}, []
+    for name, fn in (("gate", lambda: dw_gate(torch, gt, card)),
+                     ("convs", lambda: (dw_convs(torch, F, dw, card), [])),
+                     ("score", lambda: dw_score(torch, np, dw, ref, card)),
+                     ("train", lambda: dw_train(torch, np, work, card, dw, dw.FOLD_FROM)),
+                     ("train_folded", lambda: dw_train(torch, np, work, card, dw,
+                                                       {torch.float32: 16})),
+                     ("serve", lambda: dw_serve(torch, np, card))):
+        with phase_time(f"12-{name}"):
+            out[name], b = fn()
+            bad += b
+    if bad:
+        fail("; ".join(bad))
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -3555,6 +3895,7 @@ def main():
         with phase_time("11c"):
             benches["11c"] = phase_bench_train(work, card)
         benches["11d"] = loader.join()
+        diffwave = phase_diffwave(torch, np, work, card)
     finally:
         for _, _, _, p in demos.values():          # none outlives the script
             if p.poll() is None:
@@ -3600,6 +3941,18 @@ def main():
                 "max_dx_ulps": timing_bwd["kernel_dx_ulps"],
                 "ms": timing_bwd["ms"], "plain_ms": timing_bwd["plain_ms"],
                 "bound_ms": timing_bwd["bound_ms"], "bound_by": "bytes",
+                "library_ms": None},
+               {"name": "gated_tanh_fwd", "route": "triton",
+                "source": "aid_tpu_torch/ops/gated_tanh.py", "replaces": None,
+                "max_abs_err": diffwave["gate"]["bfloat16"]["fwd_max_abs_err"],
+                "ms": diffwave["gate"]["fwd_ms"], "plain_ms": diffwave["gate"]["fwd_plain_ms"],
+                "bound_ms": diffwave["gate"]["fwd_bound_ms"], "bound_by": "bytes",
+                "library_ms": None},
+               {"name": "gated_tanh_bwd", "route": "triton",
+                "source": "aid_tpu_torch/ops/gated_tanh.py", "replaces": None,
+                "max_rel_err": diffwave["gate"]["bfloat16"]["bwd_rel_err"],
+                "ms": diffwave["gate"]["bwd_ms"], "plain_ms": diffwave["gate"]["bwd_plain_ms"],
+                "bound_ms": diffwave["gate"]["bwd_bound_ms"], "bound_by": "bytes",
                 "library_ms": None}]
     log(f"total {time.time() - t_start:.1f} s")
     log(f"gpu: {card}")
@@ -3609,8 +3962,40 @@ def main():
                                            "count": torch.cuda.device_count()}}))
 
 
+def diffwave_main():
+    """``--diffwave``: phases 1 and 12 alone."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on an NVIDIA GPU")
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(here, ".triton_cache"))
+    from aid_tpu_torch.tools.profile_denoiser import gpu_line
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = gpu_line()
+    log("== phase 1: device")
+    log(f"gpu: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    work = os.path.join(here, "experiments", "chip_smoke_diffwave")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        os.makedirs(work)
+        phase_diffwave(torch, np, work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({"phase_seconds": PHASE_S, "card": card}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--rank":   # a rank of phase 7
         rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:] == ["--diffwave"]:
+        diffwave_main()
     else:
         main()

@@ -156,18 +156,18 @@ def test_bwd_kernel_is_deterministic(cuda, dtype):
 def test_bwd_kernel_replayed_in_a_graph_equals_eager(cuda):
     """The backward captured in a CUDA graph and replayed gives the eager
     run's dx and row sums bit for bit; the capture's launch is counted when
-    replayed (``captured_counts``, ``add_replayed_launches``)."""
-    from aid_tpu_torch.utils import graphs
+    replayed (``trace.captured_launches``, ``trace.replayed_launches``)."""
+    from aid_tpu_torch.utils import graphs, trace
     x, g, inv, mod = _bwd_inputs(cuda, 2, 14336, 256, torch.bfloat16)
     ref = fa._fused_bwd_cuda(x, g, inv, mod, "tanh")
     stream = graphs.capture_stream("cuda")
     fn = lambda: fa._fused_bwd_cuda(x, g, inv, mod, "tanh")    # noqa: E731
     graphs.warm_up([fn], stream)
     graph, out, launches, _ = graphs.capture(fn, stream, what="the backward kernel")
-    assert launches == (0, 1)
+    assert launches["fused_adaln"] == (0, 1)
     fa.reset_launch_count()
     graph.replay()
-    fa.add_replayed_launches(*launches)
+    trace.replayed_launches(launches)
     torch.cuda.synchronize()
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
     assert (fa.launch_count(), fa.bwd_launch_count()) == (0, 1)
@@ -386,7 +386,7 @@ def _replayed_against_eager(tr, graphs=1):
     state = [t.detach().clone() for t in tr._state()]
     gen, it = tr.gen.get_state(), tr.it
     prog = tr.compile_step(audio, fs)
-    assert len(prog.graphs) == graphs and prog.launches > 0 and prog.memory_bytes() > 0
+    assert len(prog.graphs) == graphs and prog.replay_launches() > 0 and prog.memory_bytes() > 0
     assert all(torch.equal(a, b) for a, b in zip(tr._state(), state))
     assert tr.it == it and torch.equal(tr.gen.get_state(), gen)
     tr.train_step(audio, fs)                       # step 1 (lr 0), replayed
@@ -401,8 +401,8 @@ def _replayed_against_eager(tr, graphs=1):
     fa.reset_launch_count()
     m = tr.train_step(audio, fs)
     torch.cuda.synchronize()
-    assert tr.step_programs_built == 1 and fa.launch_count() == prog.launches
-    assert 2 * fa.bwd_launch_count() == 2 * prog.bwd_launches == prog.launches
+    assert tr.step_programs_built == 1 and fa.launch_count() == prog.replay_launches()
+    assert 2 * fa.bwd_launch_count() == 2 * prog.replay_launches(bwd=True) == prog.replay_launches()
     assert prog.replays == 2
     assert abs(float(m["loss"]) - float(eager["loss"])) <= 1e-5 * abs(float(eager["loss"]))
     num = sum(float((a.detach() - b).double().pow(2).sum()) for a, b in zip(tr.params, p_eager))
@@ -508,7 +508,8 @@ def test_no_collection_runs_during_a_capture(cuda):
         return torch.full((8,), 3.0, device="cuda") * 2
 
     g, out, launches, peak = graphs.capture(fn, graphs.capture_stream("cuda"), what="a probe")
-    assert seen == [False] and gc.isenabled() and dead() is not None and launches == (0, 0)
+    assert seen == [False] and gc.isenabled() and dead() is not None
+    assert launches["fused_adaln"] == (0, 0) and all(n == (0, 0) for n in launches.values())
     g.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, torch.full((8,), 6.0, device="cuda")) and peak > 0

@@ -202,12 +202,12 @@ def test_launch_counts_apart_and_in_the_trace_snapshot():
     ``trace.snapshot()``; ``reset_launch_count`` zeroes both."""
     from aid_tpu_torch.utils import trace
     fa.reset_launch_count()
-    fa.add_replayed_launches(90, 90)
-    fa.add_replayed_launches(180)
+    trace.replayed_launches({"fused_adaln": (90, 90)})
+    trace.replayed_launches({"fused_adaln": (180, 0)})
     assert (fa.launch_count(), fa.bwd_launch_count()) == (270, 90)
     counters = trace.snapshot()["counters"]
     assert counters["fused_adaln.launches"] == 270
     assert counters["fused_adaln.bwd_launches"] == 90
-    assert fa.captured_counts() == (0, 0)
+    assert trace.captured_launches()["fused_adaln"] == (0, 0)
     fa.reset_launch_count()
     assert (fa.launch_count(), fa.bwd_launch_count()) == (0, 0)

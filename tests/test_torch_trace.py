@@ -80,6 +80,35 @@ def test_marks_off_a_capture_do_nothing_and_are_not_read():
     assert all(g["graph"] != "test.graph" for g in trace.snapshot()["marks"])
 
 
+@pytest.mark.parametrize("bwd", [False, True])
+def test_a_kernels_launches_in_a_capture_count_when_replayed(bwd, monkeypatch):
+    """``trace.Launches``: a launch outside a capture is run; one inside is
+    recorded apart, read since a reading by ``captured_launches``, and run
+    by each replay (``replayed_launches``); the counters report the runs."""
+    monkeypatch.setattr(trace, "_LAUNCHES", {})
+    monkeypatch.setattr(trace, "_COUNTERS", {})
+    k, other = trace.Launches("test_kernel"), trace.Launches("test_other")
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    k.launched(bwd)
+    before = trace.captured_launches()
+    capturing[0] = True
+    k.launched(bwd)
+    k.launched(bwd)
+    recorded = trace.captured_launches(since=before)
+    side = (0, 2) if bwd else (2, 0)
+    assert recorded == {"test_kernel": side, "test_other": (0, 0)}
+    assert k.count(bwd) == 1
+    trace.replayed_launches(recorded)
+    trace.replayed_launches(recorded)
+    assert (k.count(), k.count(bwd=True)) == ((0, 5) if bwd else (5, 0))
+    counters = trace.snapshot()["counters"]
+    assert counters[f"test_kernel.{'bwd_' if bwd else ''}launches"] == 5
+    assert other.count() == other.count(bwd=True) == 0
+    k.reset()
+    assert counters != trace.snapshot()["counters"] and k.count(bwd) == 0
+
+
 TINY_SERVE = ["network.cqt.num_octs=3", "network.cqt.bins_per_oct=8", "exp.audio_len=2048",
               "exp.sample_rate=4096", "network.Ns=[8,16,16]", "network.num_dils=[1,2,2]",
               "network.attention_layers=[0,1,1,1]", "network.emb_dim=32",
